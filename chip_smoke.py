@@ -8,19 +8,40 @@ Needs CUDA and ``nvcc``; exits non-zero without them. Phases, each printing
 one JSON line:
 
   env       what it runs on (repro_torch.env.probe)
-  build     compiles the CUDA kernels from src/repro_torch/kernels/csrc
-  rehearse  the serve trace on the reduced config: the engine on the card (CUDA
-            kernels) against the same engine on the CPU (plain PyTorch), token
-            for token, and the admission shapes the trace produces
+  build     compiles the six CUDA kernels from src/repro_torch/kernels/csrc
+  rehearse  the serve trace on the reduced fp32 config: the engine on the card
+            (CUDA kernels) against the same engine on the CPU (plain PyTorch),
+            token for token, in every served form: dense bf16-layout cache,
+            paged pool (and paged == dense on the card), paged int8 pool, int8
+            expert tables; and the admission shapes the trace produces
   kernels   each kernel against its plain PyTorch version on the card: the case
-            list of tests/test_torch_kernels.py, then the serve phase's shapes
-            at full width, timed
-  contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise
+            lists of tests/test_torch_kernels*.py and test_torch_paged_attention.py
+            (duplicate and out-of-range ids, zero-sized groups, live-masked pad
+            rows, NaN in blocks a slot does not own, lens == 0, a contiguous
+            table against the dense attention), then the serve phase's shapes at
+            full width, timed; int8 gather == int8 grouped bitwise; quantizing
+            one full-width layer on the card == on the CPU, bitwise. The paged
+            kernels are held to half an output ulp against the plain version
+            at fp32, on a peaked softmax, and that tolerance must reject the
+            plain version with each slot's last row dropped
+  contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
+            prompt admitted alone and in a group of four gives bitwise-equal
+            logits (and what that costs per admission group); paged against
+            dense decode logits (gap reported); int8 gather == int8 ragged
   serve     qwen3-moe-30b-a3b at full width (depth cut to --layers), bf16,
-            random weights from a seed, 16 requests on a Poisson trace through
-            the continuous-batching engine: uncompressed, then merged
-            (M = N/2 on the suffix); then the same trace with decode_block=1
-            and with dispatch="ragged" at --variant-layers
+            random weights from a seed, 16 requests on a Poisson trace (4 of
+            them share a 128-token prefix) through the continuous-batching
+            engine: uncompressed with the dense cache, the paged pool (prefix
+            hits checked) and the paged int8 pool, then int8 expert tables;
+            merged (M = N/2 on the suffix) in bf16 and in int8. Teacher-forced
+            top-1 agreement of each form with the dense bf16 engine, at the
+            served batch (the dense engine's own stream must read 1.0; paged
+            int8 KV must reach 0.95 at the reduced config). Then the same
+            trace with decode_block=1 (token equal to decode_block=8) and
+            dispatch="ragged" at --variant-layers
+  witness   (--witness-layers N only) the paged int8 pool's top-1 against the
+            bf16 pool at full width and depth N, on the card and on the CPU's
+            plain path, same weights and contexts
 
 then a ``{"kernels": [...]}`` line (times, bounds and the serve phase's launch
 counts), the card's name and power limit, and ``{"ok": true, ...}`` last. Any
@@ -48,13 +69,25 @@ ARCH = "qwen3-moe-30b-a3b"
 #: published peaks of one H100 SXM (dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+KV_BLOCK = 16
+#: teacher-forced top-1 floor of the paged int8 pool against the dense bf16
+#: engine (the reference's own gate, benchmarks/serve_bench.py)
+KV_INT8_TOLERANCE = 0.95
+CSRC = "src/repro_torch/kernels/csrc/"
 TABLE = {
-    "gather_swiglu": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/gather_swiglu.cu",
-        replaces="src/repro/kernels/decode_moe.py:56"),
-    "grouped_swiglu": dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/grouped_swiglu.cu",
-        replaces="src/repro/kernels/grouped_mlp.py:103"),
+    "gather_swiglu": dict(source=CSRC + "gather_swiglu.cu",
+                          replaces="src/repro/kernels/decode_moe.py:56"),
+    "grouped_swiglu": dict(source=CSRC + "grouped_swiglu.cu",
+                           replaces="src/repro/kernels/grouped_mlp.py:103"),
+    "gather_swiglu_q": dict(source=CSRC + "gather_swiglu_q.cu",
+                            replaces="src/repro/kernels/decode_moe.py:118"),
+    "grouped_swiglu_q": dict(source=CSRC + "grouped_swiglu_q.cu",
+                             replaces="src/repro/kernels/grouped_mlp.py:148"),
+    "paged_attention": dict(source=CSRC + "paged_attention.cu",
+                            replaces="src/repro/kernels/paged_attention.py:124"),
+    "paged_attention_q": dict(
+        source=CSRC + "paged_attention_q.cu",
+        replaces="src/repro/kernels/paged_attention.py:152"),
 }
 
 
@@ -65,6 +98,10 @@ def emit(phase: str, **kw) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def dtype_key(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +119,27 @@ def tol_for(dtype, want: torch.Tensor):
     return 0.0, 2 * scale / 128, "atol 2 bf16 ulps of max|y|"
 
 
-def compare(name, got, want, dtype):
+def attn_tol_for(dtype, want: torch.Tensor, vmax: float):
+    """Paged attention against its plain version run on the same inputs
+    widened to fp32 (exactly), so that neither rounds anything before the
+    output: the kernel keeps K/V rows, logits, softmax and accumulator in
+    fp32. fp32: the order of the fp32 sums and of the online softmax's
+    rescaling differs. bf16 adds the kernel's one rounding of the output,
+    half an ulp: at most 2^-8 of |y| per element."""
+    scale = max(float(want.float().abs().max()), 1e-6) if want.numel() else 1.0
+    atol = 1e-5 * vmax + 2e-5 * scale
+    if dtype == torch.float32:
+        return (1e-4, atol,
+                "rtol 1e-4, atol 1e-5*max|v| + 2e-5*max|y| (fp32 sum order)")
+    return (2.0 ** -8 + 1e-4, atol,
+            "vs the plain version at fp32: rtol 2^-8 (the output's rounding "
+            "to bf16) + 1e-4, atol 1e-5*max|v| + 2e-5*max|y| (fp32 sum "
+            "order)")
+
+
+def compare(name, got, want, dtype, tol=None):
     torch.cuda.synchronize()
-    rtol, atol, words = tol_for(dtype, want)
+    rtol, atol, words = tol if tol is not None else tol_for(dtype, want)
     err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
     ok = bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol))
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite output")
@@ -103,36 +158,117 @@ def tables(gen, E, d, f, dtype, dev, live=None):
     return [w.to(dtype).contiguous() for w in ws]
 
 
+GROUPED_CASES = {
+    "empty-middle": [10, 0, 37, 17], "single-expert": [64],
+    "tiny-and-dominant": [1, 1, 1, 1, 60], "block-aligned": [16, 16, 16, 16],
+    "empty-first": [0, 10], "empty-last": [10, 0],
+    "leading-empties": [0, 0, 16], "trailing-empties": [5, 0, 0, 0],
+    "empty-run-middle": [3, 0, 0, 3], "all-but-one-empty": [0, 0, 0, 0, 64],
+    "post-merge": [40, 0, 24, 0, 16, 0, 8, 0], "T-zero": [0, 0, 0, 0],
+    "odd-widths": [3, 0, 9],
+}
+GATHER_CASES = {
+    "decode-shape": (4, 24, 32, 8, 2, None, None),
+    "single-token-single-expert": (1, 16, 16, 4, 1, None, None),
+    "k3": (8, 32, 48, 8, 3, None, None),
+    "tiny-table": (3, 16, 32, 2, 2, None, None),
+    "duplicate-ids": (2, 16, 16, 4, 2, [[1, 1], [2, 0]], None),
+    "out-of-range-ids": (2, 16, 16, 4, 2, [[7, 0], [1, -7]], None),
+    "hetero-pad-rows": (4, 24, 32, 8, 2, None, 5),
+    "T-zero": (0, 16, 16, 4, 2, None, None),
+    "reduced-config": (4, 64, 32, 8, 2, None, None),
+    "odd-widths": (3, 23, 31, 4, 2, None, None),
+}
+#: (B, nq, nkv, hd, bs, mb) as in tests/test_torch_paged_attention.py
+PAGED_CASES = {"mha": (2, 4, 4, 16, 4, 3), "gqa4": (3, 8, 2, 16, 8, 2),
+               "hd32": (1, 4, 4, 32, 4, 4), "serve-like": (4, 8, 1, 128, 16, 4),
+               "long-table": (2, 8, 2, 64, 16, 40)}
+
+
+def paged_inputs(gen, B, nq, nkv, hd, nb, bs, mb, dtype, dev, lens=None):
+    """Random pools and a valid table: slot b owns ceil(lens[b]/bs) distinct
+    blocks, the rest of its row is the sentinel ``nb``. q is 8x the scale of
+    k, so the logits have a standard deviation of 2 and the softmax is
+    peaked: a wrong mask or scale moves the output by far more than the
+    tolerance."""
+    q = (torch.randn((B, nq, hd), generator=gen, device=dev) * 4.0).to(dtype)
+    kp = (torch.randn((nb, bs, nkv, hd), generator=gen, device=dev)
+          * 0.5).to(dtype)
+    vp = (torch.randn((nb, bs, nkv, hd), generator=gen, device=dev)
+          * 0.5).to(dtype)
+    if lens is None:
+        lens = torch.randint(1, mb * bs + 1, (B,), generator=gen, device=dev)
+    lens = lens.to(torch.int32)
+    tab = torch.full((B, mb), nb, dtype=torch.int32)
+    perm = torch.randperm(nb, generator=gen, device=dev).cpu()
+    used = 0
+    for b, n in enumerate(lens.tolist()):
+        need = -(-n // bs)
+        tab[b, :need] = perm[used:used + need]
+        used += need
+    check(used <= nb, "paged inputs: pool too small")
+    return q, kp, vp, tab.to(dev), lens
+
+
+def paged_pair(q, kp, vp, tab, lens, int8):
+    """(kernel, plain at fp32, plain in the input type, max|v|, plain at fp32
+    as a function of lens) of one paged attention call. The fp32 plain
+    version takes the same inputs widened to fp32 (int8 pools: dequantized
+    to fp32), which is exact."""
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import ops, paged_attention as PA
+    q32 = q.float()
+    if not int8:
+        plain = ops.KERNELS["paged_attention"].plain
+        k32, v32 = kp.float(), vp.float()
+
+        def want(ln):
+            return plain(q32, k32, v32, tab, ln)
+        return (PA.paged_attention(q, kp, vp, tab, lens), want(lens),
+                plain(q, kp, vp, tab, lens), float(v32.abs().max()), want)
+    plain = ops.KERNELS["paged_attention_q"].plain
+    kq, ks = Q.quantize_kv(kp)
+    vq, vs = Q.quantize_kv(vp)
+
+    def want(ln):
+        return plain(q32, kq, vq, ks, vs, tab, ln)
+    return (PA.paged_attention_q(q, kq, vq, ks, vs, tab, lens), want(lens),
+            plain(q, kq, vq, ks, vs, tab, lens),
+            float((vs.abs().max() * 127).item()), want)
+
+
+def check_sees_dropped_row(name, want_of, lens, dtype, vmax):
+    """The tolerance of a paged kernel's check must reject the plain version
+    with the last valid row of every slot dropped (lens - 1): the fault it is
+    there to catch."""
+    want = want_of(lens)
+    off = want_of((lens - 1).clamp(min=0))
+    rtol, atol, _ = attn_tol_for(dtype, want, vmax)
+    torch.cuda.synchronize()
+    check(not bool(torch.allclose(off.float(), want.float(), rtol=rtol,
+                                  atol=atol)),
+          f"{name}: the tolerance cannot tell a dropped last row")
+
+
 def case_list(dev):
-    """The case list of tests/test_torch_kernels.py at the reduced shapes."""
-    from repro_torch.kernels import decode_moe, grouped_mlp
+    """The case lists of tests/test_torch_kernels.py, test_torch_kernels_q.py
+    and test_torch_paged_attention.py at their reduced shapes, for all six
+    kernels."""
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import decode_moe, grouped_mlp, ops
+    from repro_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(42)
-    grouped = {
-        "empty-middle": [10, 0, 37, 17], "single-expert": [64],
-        "tiny-and-dominant": [1, 1, 1, 1, 60], "block-aligned": [16, 16, 16, 16],
-        "empty-first": [0, 10], "empty-last": [10, 0],
-        "leading-empties": [0, 0, 16], "trailing-empties": [5, 0, 0, 0],
-        "empty-run-middle": [3, 0, 0, 3], "all-but-one-empty": [0, 0, 0, 0, 64],
-        "post-merge": [40, 0, 24, 0, 16, 0, 8, 0], "T-zero": [0, 0, 0, 0],
-        "odd-widths": [3, 0, 9],
-    }
-    gather = {
-        "decode-shape": (4, 24, 32, 8, 2, None, None),
-        "single-token-single-expert": (1, 16, 16, 4, 1, None, None),
-        "k3": (8, 32, 48, 8, 3, None, None),
-        "tiny-table": (3, 16, 32, 2, 2, None, None),
-        "duplicate-ids": (2, 16, 16, 4, 2, [[1, 1], [2, 0]], None),
-        "out-of-range-ids": (2, 16, 16, 4, 2, [[7, 0], [1, -7]], None),
-        "hetero-pad-rows": (4, 24, 32, 8, 2, None, 5),
-        "T-zero": (0, 16, 16, 4, 2, None, None),
-        "reduced-config": (4, 64, 32, 8, 2, None, None),
-        "odd-widths": (3, 23, 31, 4, 2, None, None),
-    }
     n = 0
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {}
+
+    def note(name, err):
+        nonlocal n
+        worst[name] = max(worst.get(name, 0.0), err)
+        n += 1
+
     for dtype in (torch.float32, torch.bfloat16):
-        key = str(dtype).split(".")[-1]
-        for name, sizes in grouped.items():
+        key = dtype_key(dtype)
+        for name, sizes in GROUPED_CASES.items():
             d, f = (23, 31) if name == "odd-widths" else (24, 32)
             E, T = len(sizes), sum(sizes)
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
@@ -140,10 +276,16 @@ def case_list(dev):
             gs = torch.tensor(sizes, device=dev)
             got = grouped_mlp.grouped_swiglu(x, wg, wu, wd, gs)
             err, _ = compare(f"grouped_swiglu[{name},{key}]", got,
-                             grouped_mlp.plain(x, wg, wu, wd, gs), dtype)
-            worst[key] = max(worst[key], err)
-            n += 1
-        for name, (T, d, f, E, k, idx, live) in gather.items():
+                             ops.KERNELS["grouped_swiglu"].plain(
+                                 x, wg, wu, wd, gs), dtype)
+            note("grouped_swiglu", err)
+            qt = Q.quantize_expert_tables(wg, wu, wd)
+            got = grouped_mlp.grouped_swiglu_q(x, qt, gs)
+            err, _ = compare(f"grouped_swiglu_q[{name},{key}]", got,
+                             ops.KERNELS["grouped_swiglu_q"].plain(x, qt, gs),
+                             dtype)
+            note("grouped_swiglu_q", err)
+        for name, (T, d, f, E, k, idx, live) in GATHER_CASES.items():
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
             wg, wu, wd = tables(gen, E, d, f, dtype, dev, live=live)
             if idx is None:
@@ -151,12 +293,77 @@ def case_list(dev):
                                     device=dev)
             else:
                 idx = torch.tensor(idx, device=dev)
+            idx = idx.to(torch.int32)
             w = torch.softmax(torch.randn((T, k), generator=gen, device=dev), -1)
-            got = decode_moe.gather_swiglu(x, wg, wu, wd, idx.to(torch.int32), w)
+            got = decode_moe.gather_swiglu(x, wg, wu, wd, idx, w)
             err, _ = compare(f"gather_swiglu[{name},{key}]", got,
-                             decode_moe.plain(x, wg, wu, wd, idx, w), dtype)
-            worst[key] = max(worst[key], err)
-            n += 1
+                             ops.KERNELS["gather_swiglu"].plain(
+                                 x, wg, wu, wd, idx, w), dtype)
+            note("gather_swiglu", err)
+            qt = Q.quantize_expert_tables(wg, wu, wd)
+            got = decode_moe.gather_swiglu_q(x, qt, idx, w)
+            err, _ = compare(f"gather_swiglu_q[{name},{key}]", got,
+                             ops.KERNELS["gather_swiglu_q"].plain(
+                                 x, qt, idx, w), dtype)
+            note("gather_swiglu_q", err)
+        for name, (B, nq, nkv, hd, bs, mb) in PAGED_CASES.items():
+            nb = B * mb + 2
+            q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, nb, bs,
+                                                mb, dtype, dev)
+            for int8 in (False, True):
+                kname = "paged_attention_q" if int8 else "paged_attention"
+                got, want, _, vmax, want_of = paged_pair(q, kp, vp, tab, lens,
+                                                         int8)
+                err, _ = compare(f"{kname}[{name},{key}]", got, want, dtype,
+                                 attn_tol_for(dtype, want, vmax))
+                check_sees_dropped_row(f"{kname}[{name},{key}]", want_of, lens,
+                                       dtype, vmax)
+                note(kname, err)
+        # blocks a slot does not own and rows past lens may hold anything,
+        # NaN included: the kernel never loads them, so no output bit moves
+        B, nq, nkv, hd, bs, mb = 3, 8, 2, 32, 8, 3
+        nb = B * mb + 2
+        q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, nb, bs, mb,
+                                            dtype, dev)
+        owned = set(tab.reshape(-1).tolist()) - {nb}
+        kp2, vp2 = kp.clone(), vp.clone()
+        for blk in range(nb):
+            if blk not in owned:
+                kp2[blk] = float("nan")
+                vp2[blk] = float("nan")
+        for b in range(B):
+            last = int(tab[b, (int(lens[b]) - 1) // bs])
+            kp2[last, (int(lens[b]) - 1) % bs + 1:] = float("nan")
+            vp2[last, (int(lens[b]) - 1) % bs + 1:] = float("nan")
+        clean = PA.paged_attention(q, kp, vp, tab, lens)
+        poisoned = PA.paged_attention(q, kp2, vp2, tab, lens)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(clean, poisoned)),
+              f"paged_attention[poisoned unowned blocks,{key}]: output moved")
+        # lens == 0: finite zeros; the other rows as before
+        lens0 = lens.clone()
+        lens0[0] = 0
+        y0 = PA.paged_attention(q, kp, vp, tab, lens0)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y0).all()) and bool((y0[0] == 0).all())
+              and bool(torch.equal(y0[1:], clean[1:])),
+              f"paged_attention[lens=0,{key}]: not finite zeros")
+        # a contiguous table makes the pool a dense cache: the dense attention
+        from repro_torch.models.layers import _sdpa
+        nb = B * mb
+        tabc = torch.arange(nb, dtype=torch.int32, device=dev).reshape(B, mb)
+        got = PA.paged_attention(q, kp[:nb].contiguous(), vp[:nb].contiguous(),
+                                 tabc, lens)
+        kc = kp[:nb].reshape(B, mb * bs, nkv, hd).float()
+        vc = vp[:nb].reshape(B, mb * bs, nkv, hd).float()
+        valid = (torch.arange(mb * bs, device=dev)[None, :]
+                 < lens[:, None])[:, None, None, :]
+        dense = _sdpa(q.float()[:, None], kc, vc, valid, nq // nkv)[:, 0]
+        err, _ = compare(f"paged_attention[contiguous==dense,{key}]", got,
+                         dense, dtype,
+                         attn_tol_for(dtype, dense, float(vc.float().abs().max())))
+        note("paged_attention", err)
+        n += 2
     return n, worst
 
 
@@ -179,14 +386,36 @@ def time_ms(fn, reps: int, rounds: int = 5) -> float:
 
 
 def bound_ms(dtype, n_rows: int, experts_hit: int, d: int, f: int,
-             io_bytes: int):
+             io_bytes: int, int8: bool = False):
     """Least time the card could take: the larger of bytes / memory rate
     (each input read once, each output written once: the three tables of
     every expert that is HIT, plus activations and indices) and operations /
-    peak rate of the type (2*3*d*f per row)."""
-    size = torch.empty((), dtype=dtype).element_size()
-    t_bytes = (experts_hit * 3 * d * f * size + io_bytes) / HBM_BYTES_PER_S
-    t_ops = (n_rows * 2 * 3 * d * f) / PEAK_FLOPS[dtype]
+    peak rate of the type (2*3*d*f per row). Int8 tables: one byte a weight
+    plus the fp32 scales of its (2f + d) output channels; the arithmetic is
+    fp32 (the weights are dequantized to fp32), so the fp32 peak."""
+    if int8:
+        per_expert = 3 * d * f + 4 * (2 * f + d)
+        peak = PEAK_FLOPS[torch.float32]
+    else:
+        per_expert = 3 * d * f * torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_FLOPS[dtype]
+    t_bytes = (experts_hit * per_expert + io_bytes) / HBM_BYTES_PER_S
+    t_ops = (n_rows * 2 * 3 * d * f) / peak
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by
+
+
+def attn_bound_ms(q, lens, nkv: int, pool_elt: int, int8: bool):
+    """Paged decode attention: each valid row's K and V of every kv head read
+    once (int8: one byte an element plus its fp32 scale), q read and the
+    output written once, the table's used entries and lens; operations
+    2*hd for q.k and 2*hd for p.v per (row, query head), in fp32."""
+    B, nq, hd = q.shape
+    rows = int(lens.to(torch.long).sum())
+    kv = rows * nkv * 2 * (hd * pool_elt + (4 if int8 else 0))
+    io = 2 * q.numel() * q.element_size() + 4 * (B + rows)
+    t_bytes = (kv + io) / HBM_BYTES_PER_S
+    t_ops = rows * nq * 4 * hd / PEAK_FLOPS[torch.float32]
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops) * 1e3, by
 
@@ -200,100 +429,204 @@ def route_like_the_model(gen, T, k, n_orig, E, dev):
     return (idx % E).to(torch.int32)
 
 
-def main_path_shapes(dev, cfg, admission_rows: int):
-    """Both kernels at the shapes the serve phase gives them, full width."""
-    from repro_torch.kernels import decode_moe, grouped_mlp
+def sort_pairs(idx, E, k):
+    """(order, inverse order, group sizes) of a [T, k] id table sorted by
+    expert, stably, as the ragged path sorts it."""
+    flat = idx.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(flat.numel(), device=idx.device)
+    return order, inv, torch.bincount(flat, minlength=E)
+
+
+def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
+    """Every kernel at the shapes the serve phase gives it, full width."""
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import decode_moe, grouped_mlp, ops
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ref
     from repro_torch.kernels.ref import combine_in_order
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     N, k = cfg.moe.n_experts, cfg.moe.top_k
     gen = torch.Generator(device=dev).manual_seed(7)
     checks, entries = [], {}
+    quant_bitwise = None
     for dtype in (torch.bfloat16, torch.float32):
-        key = str(dtype).split(".")[-1]
+        key = dtype_key(dtype)
         size = torch.empty((), dtype=dtype).element_size()
         full = tables(gen, N, d, f, dtype, dev)
         for E in (N, N // 2):
             wg, wu, wd = [w[:E].contiguous() for w in full]
+            qt = Q.quantize_expert_tables(wg, wu, wd)
+            if quant_bitwise is None:
+                # one full-width layer quantized on the card and on the CPU
+                on_cpu = Q.quantize_expert_tables(wg.cpu(), wu.cpu(), wd.cpu())
+                quant_bitwise = all(torch.equal(a.cpu(), b)
+                                    for a, b in zip(qt, on_cpu))
+                check(quant_bitwise, "quantize_expert_tables: the card's int8 "
+                                     "tables or scales differ from the CPU's")
+                del on_cpu
             # ---- gather: one decode step of the 8-slot engine
             T = 8
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
             idx = route_like_the_model(gen, T, k, N, E, dev)
             w = torch.softmax(torch.randn((T, k), generator=gen, device=dev), -1)
+            order, inv, gs = sort_pairs(idx, E, k)
+            hit = int((gs > 0).sum())
+            io = 2 * T * d * size + T * k * 8
             got = decode_moe.gather_swiglu(x, wg, wu, wd, idx, w)
-            want = decode_moe.plain(x, wg, wu, wd, idx, w)
-            err, words = compare(f"gather_swiglu[T={T},E={E},{key}]", got, want,
-                                 dtype)
-            # ---- the same pairs through the grouped kernel + ordered combine
-            flat = idx.reshape(-1).long()
-            order = torch.argsort(flat, stable=True)
-            gs = torch.bincount(flat, minlength=E)
+            plain = ops.KERNELS["gather_swiglu"].plain
+            err, words = compare(f"gather_swiglu[T={T},E={E},{key}]", got,
+                                 plain(x, wg, wu, wd, idx, w), dtype)
+            # the same pairs through the grouped kernel + ordered combine
             ys = grouped_mlp.grouped_swiglu(x[order // k].contiguous(), wg, wu,
                                             wd, gs)
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(T * k, device=dev)
             via_grouped = combine_in_order(ys[inv].reshape(T, k, d), w).to(dtype)
             torch.cuda.synchronize()
             bitwise = bool(torch.equal(got, via_grouped))
             check(bitwise, f"gather != grouped bitwise at E={E}, {key}")
-            hit = int(torch.unique(flat).numel())
-            io = 2 * T * d * size + T * k * 8
             b_ms, by = bound_ms(dtype, T * k, hit, d, f, io)
-            ms = time_ms(lambda: decode_moe.gather_swiglu(x, wg, wu, wd, idx, w),
-                         reps=20)
-            p_ms = time_ms(lambda: decode_moe.plain(x, wg, wu, wd, idx, w),
-                           reps=3, rounds=3)
             rec = dict(name="gather_swiglu", shape=f"T={T} k={k} E={E} d={d} "
                        f"f={f} {key}", experts_hit=hit, max_err=err, tol=words,
-                       ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=p_ms,
+                       ms=time_ms(lambda: decode_moe.gather_swiglu(
+                           x, wg, wu, wd, idx, w), reps=20),
+                       bound_ms=b_ms, bound_by=by,
+                       plain_ms=time_ms(lambda: plain(x, wg, wu, wd, idx, w),
+                                        reps=3, rounds=3),
                        bitwise_vs_grouped=bitwise)
             checks.append(rec)
             if dtype == torch.bfloat16 and E == N:
                 entries["gather_swiglu"] = rec
-            # ---- grouped: the largest admission of the serve phase
+            # ---- the int8 gather: per-pair rows [T, k, d], combine outside
+            rows = decode_moe.gather_swiglu_q_rows(x, qt, idx)
+            err, words = compare(f"gather_swiglu_q[T={T},E={E},{key}]", rows,
+                                 ref.gather_swiglu_q_rows(x, qt, idx), dtype)
+            ysq = grouped_mlp.grouped_swiglu_q(x[order // k].contiguous(), qt, gs)
+            torch.cuda.synchronize()
+            bitwise_q = bool(torch.equal(rows, ysq[inv].reshape(T, k, d)))
+            check(bitwise_q, f"int8 gather != int8 grouped bitwise at E={E}, "
+                             f"{key}")
+            b_ms, by = bound_ms(dtype, T * k, hit, d, f,
+                                T * d * size + T * k * (4 + d * size), int8=True)
+            rec = dict(name="gather_swiglu_q", shape=f"T={T} k={k} E={E} d={d} "
+                       f"f={f} int8 tables, x {key}", experts_hit=hit,
+                       max_err=err, tol=words,
+                       ms=time_ms(lambda: decode_moe.gather_swiglu_q_rows(
+                           x, qt, idx), reps=20),
+                       ms_with_combine=time_ms(
+                           lambda: decode_moe.gather_swiglu_q(x, qt, idx, w),
+                           reps=20),
+                       bound_ms=b_ms, bound_by=by,
+                       plain_ms=time_ms(lambda: ref.gather_swiglu_q_rows(
+                           x, qt, idx), reps=3, rounds=3),
+                       bitwise_vs_grouped=bitwise_q)
+            checks.append(rec)
+            if dtype == torch.bfloat16 and E == N:
+                entries["gather_swiglu_q"] = rec
+            # ---- grouped: the largest admission row of the serve phase
             Tg = admission_rows
             xg = (torch.randn((Tg // k, d), generator=gen, device=dev)
                   * 0.5).to(dtype)
             idg = route_like_the_model(gen, Tg // k, k, N, E, dev)
-            flat = idg.reshape(-1).long()
-            order = torch.argsort(flat, stable=True)
-            xs = xg[order // k].contiguous()
-            gs = torch.bincount(flat, minlength=E)
-            got = grouped_mlp.grouped_swiglu(xs, wg, wu, wd, gs)
-            want = grouped_mlp.plain(xs, wg, wu, wd, gs)
-            err, words = compare(f"grouped_swiglu[T={Tg},E={E},{key}]", got,
-                                 want, dtype)
-            hit = int((gs > 0).sum())
-            io = 2 * Tg * d * size + E * 4
-            b_ms, by = bound_ms(dtype, Tg, hit, d, f, io)
-            ms = time_ms(lambda: grouped_mlp.grouped_swiglu(xs, wg, wu, wd, gs),
-                         reps=3, rounds=3)
-            p_ms = time_ms(lambda: grouped_mlp.plain(xs, wg, wu, wd, gs),
-                           reps=1, rounds=3)
-            rec = dict(name="grouped_swiglu", shape=f"T={Tg} E={E} d={d} f={f} "
-                       f"{key}", experts_hit=hit, max_err=err, tol=words, ms=ms,
-                       bound_ms=b_ms, bound_by=by, plain_ms=p_ms)
-            checks.append(rec)
-            if dtype == torch.bfloat16 and E == N:
-                entries["grouped_swiglu"] = rec
-            del wg, wu, wd, xs, got, want
+            order_g, _, gs_g = sort_pairs(idg, E, k)
+            xs = xg[order_g // k].contiguous()
+            hit = int((gs_g > 0).sum())
+            for name, fn, int8 in (
+                    ("grouped_swiglu",
+                     lambda: grouped_mlp.grouped_swiglu(xs, wg, wu, wd, gs_g),
+                     False),
+                    ("grouped_swiglu_q",
+                     lambda: grouped_mlp.grouped_swiglu_q(xs, qt, gs_g), True)):
+                plain = ops.KERNELS[name].plain
+                pfn = ((lambda: plain(xs, qt, gs_g)) if int8
+                       else (lambda: plain(xs, wg, wu, wd, gs_g)))
+                err, words = compare(f"{name}[T={Tg},E={E},{key}]", fn(), pfn(),
+                                     dtype)
+                b_ms, by = bound_ms(dtype, Tg, hit, d, f,
+                                    2 * Tg * d * size + E * 4, int8=int8)
+                rec = dict(name=name, shape=f"T={Tg} E={E} d={d} f={f} "
+                           f"{'int8 tables, x ' if int8 else ''}{key}",
+                           experts_hit=hit, max_err=err, tol=words,
+                           ms=time_ms(fn, reps=3, rounds=3), bound_ms=b_ms,
+                           bound_by=by, plain_ms=time_ms(pfn, reps=1, rounds=3))
+                checks.append(rec)
+                if dtype == torch.bfloat16 and E == N:
+                    entries[name] = rec
+            del wg, wu, wd, qt, xs
         del full
-        gc.collect()
-        torch.cuda.empty_cache()
-    return checks, entries
+        free()
+    # ---- paged attention at the serve shape: 8 slots, 32 / 4 heads, hd 128,
+    # blocks of KV_BLOCK rows, s_max 512, lens of a decode step of the trace
+    B, nq, nkv, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    mb = 512 // KV_BLOCK
+    nb = B * mb
+    for dtype in (torch.bfloat16, torch.float32):
+        key = dtype_key(dtype)
+        q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, nb, KV_BLOCK,
+                                            mb, dtype, dev,
+                                            lens=paged_lens.to(dev))
+        for int8 in (False, True):
+            name = "paged_attention_q" if int8 else "paged_attention"
+            got, want, want_typed, vmax, want_of = paged_pair(q, kp, vp, tab,
+                                                              lens, int8)
+            err, words = compare(f"{name}[serve,{key}]", got, want, dtype,
+                                 attn_tol_for(dtype, want, vmax))
+            check_sees_dropped_row(f"{name}[serve,{key}]", want_of, lens,
+                                   dtype, vmax)
+            # reported: the plain version in the input type rounds the
+            # softmax (and int8 pools' dequantized rows) to it
+            err_typed = float((got.float() - want_typed.float()).abs().max())
+            plain = ops.KERNELS[name].plain
+            if int8:
+                kq, ks = Q.quantize_kv(kp)
+                vq, vs = Q.quantize_kv(vp)
+                fn = (lambda: PA.paged_attention_q(q, kq, vq, ks, vs, tab, lens))
+                pfn = (lambda: plain(q, kq, vq, ks, vs, tab, lens))
+            else:
+                fn = (lambda: PA.paged_attention(q, kp, vp, tab, lens))
+                pfn = (lambda: plain(q, kp, vp, tab, lens))
+            b_ms, by = attn_bound_ms(q, lens, nkv,
+                                     1 if int8 else kp.element_size(), int8)
+            rec = dict(name=name, shape=f"B={B} nq={nq} nkv={nkv} hd={hd} "
+                       f"bs={KV_BLOCK} s_max={mb * KV_BLOCK} lens "
+                       f"{lens.tolist()} {'int8 pool, q ' if int8 else ''}{key}",
+                       max_err=err, tol=words,
+                       max_err_vs_plain_in_input_type=err_typed,
+                       ms=time_ms(fn, reps=50),
+                       bound_ms=b_ms, bound_by=by,
+                       plain_ms=time_ms(pfn, reps=10, rounds=3))
+            checks.append(rec)
+            if dtype == torch.bfloat16:
+                entries[name] = rec
+    return checks, entries, quant_bitwise
 
 
 # ---------------------------------------------------------------------------
 # the trace and the engine
 # ---------------------------------------------------------------------------
 
+#: the requests of the trace that share one 128-token prompt prefix
+SHARERS = (1, 5, 9, 13)
+PREFIX = 128
+
+
 def make_trace(vocab: int, seed: int, n_requests: int = 16, new_tokens: int = 32):
+    """Poisson arrivals, prompts of 32 to 256 tokens; requests SHARERS start
+    with the same PREFIX tokens (their suffixes differ), so a paged engine
+    with prefix sharing adopts the first one's blocks."""
     from repro_torch.serving import poisson_trace
     rng = np.random.default_rng(seed)
     arrivals = poisson_trace(n_requests, rate=0.5, seed=seed + 1)
     lens = rng.integers(32, 257, size=n_requests)
-    return [dict(prompt=rng.integers(0, vocab, size=int(n), dtype=np.int32),
-                 max_new_tokens=new_tokens, arrival_time=float(a))
-            for n, a in zip(lens, arrivals)]
+    prefix = rng.integers(0, vocab, size=PREFIX, dtype=np.int32)
+    trace = []
+    for i, (n, a) in enumerate(zip(lens, arrivals)):
+        prompt = rng.integers(0, vocab, size=int(n), dtype=np.int32)
+        if i in SHARERS:
+            prompt = np.concatenate([prefix, prompt[:max(int(n) - PREFIX, 16)]])
+        trace.append(dict(prompt=prompt, max_new_tokens=new_tokens,
+                          arrival_time=float(a)))
+    return trace
 
 
 def engine_config(**kw):
@@ -304,17 +637,22 @@ def engine_config(**kw):
     return EngineConfig(**base)
 
 
+PAGED = dict(kv_layout="paged", kv_block=KV_BLOCK)
+PAGED_INT8 = dict(PAGED, kv_dtype="int8")
+
+
 def serve(cfg, model, trace, device, **ec_kw):
     """Drive the trace through an Engine. Returns a dict with the tokens,
-    counters, the admission shapes, decode block times and kernel launches."""
+    counters, the admission shapes and times, decode block times, kernel
+    launches and the engine's paging telemetry."""
     from repro_torch.kernels import ops
     from repro_torch.serving import Engine
     eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device)
-    admits, block_ms = [], []
+    admits, admit_ms, block_ms = [], [], []
     admit, multi, single = eng._admit_step, eng._decode_multi, eng._decode
     cuda = torch.device(device).type == "cuda"
 
-    def timed(fn):
+    def timed(fn, into):
         def run(*a):
             if cuda:
                 torch.cuda.synchronize()
@@ -322,19 +660,24 @@ def serve(cfg, model, trace, device, **ec_kw):
             out = fn(*a)
             if cuda:
                 torch.cuda.synchronize()
-            block_ms.append((time.perf_counter() - t0) * 1e3)
+            into.append((time.perf_counter() - t0) * 1e3)
             return out
         return run
 
-    def admit_logged(m, c, tokens, lengths, slots):
+    timed_admit = timed(admit, admit_ms)
+
+    def admit_logged(m, c, tokens, *rest):
         admits.append(tuple(tokens.shape))
-        return admit(m, c, tokens, lengths, slots)
+        return timed_admit(m, c, tokens, *rest)
 
     eng._admit_step = admit_logged
-    eng._decode_multi = timed(multi)
-    eng._decode = timed(single)
+    eng._decode_multi = timed(multi, block_ms)
+    eng._decode = timed(single, block_ms)
     reqs = [eng.submit(r["prompt"], max_new_tokens=r["max_new_tokens"],
                        arrival_time=r["arrival_time"]) for r in trace]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()            # just before the main path is driven
     t0 = time.perf_counter()
     done = eng.run()
@@ -354,29 +697,41 @@ def serve(cfg, model, trace, device, **ec_kw):
     check(c["host_syncs"] == len(admits) + len(block_ms),
           f"host_syncs {c['host_syncs']} != admissions {len(admits)} + "
           f"blocks {len(block_ms)}")
+    if eng._alloc is not None:
+        eng._alloc.check_invariants()
     return dict(tokens=[list(r.out_tokens) for r in reqs], counters=dict(c),
-                admits=admits, block_ms=block_ms, wall_s=wall,
-                launches=launches, n_blocks=len(block_ms),
-                steps_per_block=eng.ec.decode_block)
+                admits=admits, admit_ms=admit_ms, block_ms=block_ms,
+                wall_s=wall, launches=launches, n_blocks=len(block_ms),
+                steps_per_block=eng.ec.decode_block,
+                paging_stats=eng.paging_stats,
+                kv_dtype_served=eng.kv_dtype_served,
+                expert_weight_dtypes=list(eng.expert_weight_dtypes()),
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9 if cuda
+                         else None))
 
 
-def check_launches(res, n_layers: int, dispatch: str = "gather"):
-    """gather launches == decode steps run x MoE layers; grouped launches ==
-    admission calls x MoE layers (plus every decode step under ragged)."""
+def check_launches(res, n_layers: int, dispatch: str = "gather",
+                   experts: str = "bf16", kv: str = "dense"):
+    """Every kernel's launches in one serve: the gather kernel of the expert
+    form once per decode step and MoE layer; the grouped kernel of the form
+    once per ADMITTED ROW and MoE layer (each row is prefilled alone), plus
+    every decode step under ragged; the paged kernel of the pool's type once
+    per decode step and layer; every other kernel never."""
     steps = res["n_blocks"] * res["steps_per_block"]
-    want_gather = steps * n_layers if dispatch == "gather" else 0
-    want_grouped = len(res["admits"]) * n_layers + (
-        steps * n_layers if dispatch == "ragged" else 0)
-    got = res["launches"]
-    check(got["gather_swiglu"] == want_gather,
-          f"gather_swiglu launched {got['gather_swiglu']}x, expected "
-          f"{want_gather}")
-    check(got["grouped_swiglu"] == want_grouped,
-          f"grouped_swiglu launched {got['grouped_swiglu']}x, expected "
-          f"{want_grouped}")
-    check(got["grouped_swiglu"] > 0, "grouped_swiglu never launched")
+    rows = sum(shape[0] for shape in res["admits"])
+    sfx = "_q" if experts == "int8" else ""
+    used = {"grouped_swiglu" + sfx: rows * n_layers + (
+        steps * n_layers if dispatch == "ragged" else 0)}
     if dispatch == "gather":
-        check(got["gather_swiglu"] > 0, "gather_swiglu never launched")
+        used["gather_swiglu" + sfx] = steps * n_layers
+    if kv != "dense":
+        used["paged_attention_q" if kv == "int8" else "paged_attention"] = \
+            steps * n_layers
+    want = {name: used.get(name, 0) for name in TABLE}
+    check(res["launches"] == want,
+          f"launches {res['launches']} != expected {want}")
+    check(all(n > 0 for n in used.values()),
+          f"a kernel of this form never launched: {res['launches']}")
 
 
 def build_model(cfg, device, seed):
@@ -387,6 +742,20 @@ def build_model(cfg, device, seed):
     model = MD.init(cfg, device, seed=seed)
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
+
+
+def weights_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def quantize(model):
+    """Int8 expert tables in place (every MoE layer of both stacks)."""
+    from repro_torch.core import quant as Q
+    t0 = time.perf_counter()
+    Q.quantize_model_experts(model)
+    torch.cuda.synchronize()
+    free()
+    return time.perf_counter() - t0
 
 
 def free():
@@ -400,12 +769,172 @@ def serve_summary(res, card):
     return dict(card=card, requests=len(res["tokens"]), tokens=n_tok,
                 wall_s=res["wall_s"], tokens_per_s=n_tok / res["wall_s"],
                 admissions=len(res["admits"]),
+                admitted_rows=sum(s[0] for s in res["admits"]),
                 largest_admission=max(res["admits"], key=lambda s: s[0] * s[1]),
+                ms_per_admission_median=statistics.median(res["admit_ms"]),
                 decode_blocks=res["n_blocks"],
                 ms_per_decode_block_median=statistics.median(res["block_ms"]),
                 ms_per_decode_block_max=max(res["block_ms"]),
-                counters=res["counters"], launches=res["launches"],
+                peak_memory_gb=res["peak_gb"], counters=res["counters"],
+                launches=res["launches"], paging_stats=res["paging_stats"],
+                kv_dtype_served=res["kv_dtype_served"],
+                expert_weight_dtypes=res["expert_weight_dtypes"],
                 finite_lane="all ones (a zero raises NumericHealthError)")
+
+
+def teacher_forced(cfg, model, trace, tokens, device, kv=None, **ec_kw):
+    """Greedy predictions under teacher forcing, as
+    benchmarks/serve_bench.py takes them for ``top1_match_int8_kv``: the
+    streams ``tokens`` (a dense bf16 engine's greedy output) fed back one
+    decode step at a time; entry [i][j] is the argmax before token j of
+    stream i. ``kv``: None for the dense cache, else ``"bf16"`` / ``"int8"``
+    for the paged pool. At the engine's own shapes (``engine_config(
+    **ec_kw)``), so that a dense engine's stream reads 1.0 against itself:
+    the trace goes through in groups of ``n_slots`` requests, each prompt
+    admitted alone at its pad length, then every decode step runs over all
+    ``n_slots`` slots (the library's products pick their algorithm by the
+    number of rows)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    ec = engine_config(**ec_kw)
+    n_slots, s_max = ec.n_slots, ec.s_max
+    shapes = ST.admit_pad_shapes(ec.prefill_buckets, s_max)
+    c = with_dispatch(cfg, "gather", n_slots)
+    new = max(len(t) for t in tokens)
+    nb = n_slots * s_max // KV_BLOCK
+    pred = []
+    for lo in range(0, len(trace), n_slots):
+        group = trace[lo:lo + n_slots]
+        if kv is None:
+            cache = MD.init_slot_cache(c, n_slots, s_max, device)
+            admit, extra = ST.make_slot_admit(c), ()
+        else:
+            cache = MD.init_paged_cache(c, n_slots, s_max, device, n_blocks=nb,
+                                        block_size=KV_BLOCK, kv_dtype=kv)
+            cache["tab"][:n_slots] = torch.arange(
+                nb, dtype=torch.int32, device=device).reshape(n_slots, -1)
+            admit = ST.make_slot_admit_paged(c)
+            extra = (torch.zeros((1,), dtype=torch.int32, device=device),)
+        forced = np.zeros((n_slots, new), np.int32)
+        out = np.zeros((n_slots, new), np.int64)
+        for i, r in enumerate(group):
+            n = len(r["prompt"])
+            toks = np.zeros((1, min(s for s in shapes if s >= n)), np.int32)
+            toks[0, :n] = r["prompt"]
+            _, greedy, cache = admit(
+                model, cache, torch.from_numpy(toks).to(device),
+                torch.tensor([n], dtype=torch.int32, device=device),
+                np.array([i], np.int32), *extra)
+            out[i, 0] = int(greedy[0])
+            t = tokens[lo + i]
+            forced[i, :len(t)] = t
+        act = torch.arange(n_slots, device=device) < len(group)
+        for j in range(new - 1):
+            logits, cache = MD.decode_step_slots(
+                c, model, cache, torch.from_numpy(forced[:, j]).to(device),
+                act)
+            out[:, j + 1] = torch.argmax(logits, dim=-1).cpu().numpy()
+        pred.extend(list(out[i]) for i in range(len(group)))
+        del cache
+        free()
+    return [p[:len(t)] for p, t in zip(pred, tokens)]
+
+
+def top1(pred, tokens) -> float:
+    """Share of positions at which two token streams agree."""
+    flat = [x == y for ta, tb in zip(pred, tokens) for x, y in zip(ta, tb)]
+    return sum(flat) / len(flat)
+
+
+def quality(args, full_cfg, device):
+    """The int8 pools' and tables' teacher-forced top-1 against the dense
+    bf16 engine at the scale benchmarks/serve_bench.py gates it (the reduced
+    bf16 config; requests of 8 to 32 prompt tokens and 16 new tokens on 4
+    slots, s_max 64), on the card. The paged int8 pool must reach
+    KV_INT8_TOLERANCE, the reference's own gate, over 128 requests (2048
+    positions: a binomial standard error of 0.5 points near 0.955). The
+    reading over serve_bench's default 16 requests (256 positions, 1.3
+    points) is reported beside it, not gated. The dense engine's own stream
+    must read 1.0 (teacher forcing at the served batch)."""
+    from repro_torch.models import model as MD
+    from repro_torch.serving import poisson_trace
+    cfg = full_cfg.reduced()
+    model = MD.init(cfg, device, seed=args.seed)
+    n_requests = 128
+    rng = np.random.default_rng(args.seed + 1)
+    lens = rng.choice([8, 16, 24, 32], size=n_requests)
+    arrivals = poisson_trace(n_requests, rate=0.5, seed=args.seed + 2)
+    prompts = np.random.default_rng(0)
+    trace = [dict(prompt=prompts.integers(0, cfg.vocab_size, size=int(n),
+                                          dtype=np.int32),
+                  max_new_tokens=16, arrival_time=float(a))
+             for n, a in zip(lens, arrivals)]
+    kw = dict(n_slots=4, s_max=64, prefill_buckets=(8, 16, 24, 32))
+    dense = serve(cfg, model, trace, device, **kw)["tokens"]
+    pred = {}
+    for form, kv in (("dense", None), ("paged bf16 KV", "bf16"),
+                     ("paged int8 KV", "int8")):
+        pred[form] = teacher_forced(cfg, model, trace, dense, device, kv=kv,
+                                    **kw)
+    quantize(model)
+    pred["int8 experts"] = teacher_forced(cfg, model, trace, dense, device, **kw)
+    del model
+    free()
+    out = {form: top1(p, dense) for form, p in pred.items()}
+    first_256 = {form: top1(p[:16], dense[:16]) for form, p in pred.items()}
+    check(out["dense"] == 1.0, f"reduced config: the dense engine's stream "
+                               f"teacher-forced at its served batch reads "
+                               f"{out['dense']}, not 1.0")
+    check(out["paged int8 KV"] >= KV_INT8_TOLERANCE,
+          f"paged int8 KV: teacher-forced top-1 {out['paged int8 KV']} < "
+          f"{KV_INT8_TOLERANCE} at the reduced config")
+    return dict(config=cfg.name, dtype=cfg.dtype, tokens=sum(map(len, dense)),
+                teacher_forced_top1_vs_dense=out,
+                first_16_requests_256_positions=first_256,
+                tolerance_paged_int8_kv=KV_INT8_TOLERANCE)
+
+
+def cpu_witness(args, full_cfg, device):
+    """A second witness of the paged int8 pool's full-width reading: its
+    teacher-forced top-1 against the paged bf16 pool on the same contexts
+    (the dense engine's streams, served on the card), taken on the card
+    through the CUDA kernels and on the CPU through the plain versions, on the
+    same weights at the published widths with the depth cut to
+    ``--witness-layers``. Prompts of 16 to 48 tokens keep the CPU's part to
+    minutes. Reported, not gated."""
+    from repro_torch.models import model as MD
+    from repro_torch.serving import poisson_trace
+    t0 = time.perf_counter()
+    cfg = full_cfg.replace(n_layers=args.witness_layers)
+    cpu_model = MD.init(cfg, "cpu", seed=args.seed)
+    gpu_model = MD.init(cfg, device, seed=args.seed)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    n_requests = 16
+    rng = np.random.default_rng(args.seed + 3)
+    arrivals = poisson_trace(n_requests, rate=0.5, seed=args.seed + 4)
+    trace = [dict(prompt=rng.integers(0, cfg.vocab_size, size=int(n),
+                                      dtype=np.int32),
+                  max_new_tokens=24, arrival_time=float(a))
+             for n, a in zip(rng.integers(16, 49, size=n_requests), arrivals)]
+    dense = serve(cfg, gpu_model, trace, device)["tokens"]
+    pred = {}
+    for where, model, dev in (("card", gpu_model, device),
+                              ("cpu", cpu_model, "cpu")):
+        for kv in ("bf16", "int8"):
+            pred[where, kv] = teacher_forced(cfg, model, trace, dense, dev,
+                                             kv=kv)
+    del cpu_model, gpu_model
+    free()
+    return dict(
+        layers=cfg.n_layers, positions=sum(map(len, dense)),
+        int8_pool_vs_bf16_pool_same_contexts={
+            where: top1(pred[where, "int8"], pred[where, "bf16"])
+            for where in ("card", "cpu")},
+        vs_dense_on_the_card={f"{kv} pool, {where}": top1(pred[where, kv],
+                                                          dense)
+                              for where in ("card", "cpu")
+                              for kv in ("bf16", "int8")},
+        seconds=time.perf_counter() - t0)
 
 
 def profile_block(cfg, model, trace, device):
@@ -441,43 +970,106 @@ def profile_block(cfg, model, trace, device):
                      for e in rows[:8]])
 
 
+def with_dispatch(cfg, name, B):
+    """The MoE dispatch an engine of ``B`` slots serves with."""
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, dispatch=name,
+        gather_max_tokens=max(cfg.moe.gather_max_tokens, B)))
+
+
+def admitted_cache(cfg, model, toks, lengths, device, paged=False):
+    """A cache of len(toks) slots (s_max 128) holding the prompts, admitted
+    through the engine's admission step (each row alone)."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    B = toks.shape[0]
+    slots = np.arange(B, dtype=np.int32)
+    if not paged:
+        cache = MD.init_slot_cache(cfg, B, 128, device)
+        logits, _, cache = ST.make_slot_admit(cfg)(model, cache, toks, lengths,
+                                                   slots)
+        return logits, cache
+    nb = B * 128 // KV_BLOCK
+    cache = MD.init_paged_cache(cfg, B, 128, device, n_blocks=nb,
+                                block_size=KV_BLOCK)
+    cache["tab"][:B] = torch.arange(nb, dtype=torch.int32,
+                                    device=device).reshape(B, -1)
+    logits, _, cache = ST.make_slot_admit_paged(cfg)(
+        model, cache, toks, lengths, slots,
+        torch.zeros((B,), dtype=torch.int32, device=device))
+    return logits, cache
+
+
+def host_ms(fn, rounds: int = 3) -> float:
+    """Median host wall time of ``fn`` ending in a synchronize."""
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
 def contracts(cfg, model, device):
     """On one cache state: logits of a decode step under gather and under
-    ragged dispatch, and logits of K fused steps against the same K steps
-    driven one at a time, compared with torch.equal."""
+    ragged dispatch, and of K fused steps against the same K steps driven one
+    at a time, compared with torch.equal; a prompt's admission logits alone
+    and in a group of four (bitwise, and the time per group of the
+    batch-invariant admission against the batched prefill it replaced); the
+    paged pool's decode logits against the dense cache's."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as MD
     gen = torch.Generator(device=device).manual_seed(3)
     B, S = 8, 64
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
     lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
-
-    def with_dispatch(name):
-        return cfg.replace(moe=dataclasses.replace(
-            cfg.moe, dispatch=name, gather_max_tokens=B))
+    gcfg = with_dispatch(cfg, "gather", B)
 
     def fresh():
-        gcfg = with_dispatch("gather")
-        cache = MD.init_slot_cache(gcfg, B, 128, device)
-        _, k, v = MD.prefill_slots(gcfg, model, toks, lengths)
-        return MD.insert_slots(cache, np.arange(B), k, v, lengths)
+        return admitted_cache(gcfg, model, toks, lengths, device)[1]
 
     tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
     act = torch.ones((B,), dtype=torch.bool, device=device)
-    lg, _ = MD.decode_step_slots(with_dispatch("gather"), model, fresh(), tok, act)
-    lr, _ = MD.decode_step_slots(with_dispatch("ragged"), model, fresh(), tok, act)
+    lg, _ = MD.decode_step_slots(gcfg, model, fresh(), tok, act)
+    lr, _ = MD.decode_step_slots(with_dispatch(cfg, "ragged", B), model, fresh(),
+                                 tok, act)
     check(bool(torch.isfinite(lg).all()), "contracts: non-finite logits")
     gather_ragged = bool(torch.equal(lg, lr))
+    check(gather_ragged, "contracts: gather != ragged on decode logits")
 
-    # a prompt prefilled alone and in a batch of four: reported, not required
-    # (the projections and attention are library products whose reduction
-    # order may change with the batch size)
-    gcfg = with_dispatch("gather")
-    alone, _, _ = MD.prefill_slots(gcfg, model, toks[:1], lengths[:1])
-    among, _, _ = MD.prefill_slots(gcfg, model, toks[:4], lengths[:4])
-    prefill_invariant = bool(torch.equal(alone[0], among[0]))
-    prefill_gap = float((alone[0] - among[0]).abs().max())
+    # ---- C1: admission alone and in a group of four, the engine's step
+    def admit_first(n):
+        return admitted_cache(gcfg, model, toks[:n], lengths[:n], device)[0][0]
 
+    alone, among = admit_first(1), admit_first(4)
+    torch.cuda.synchronize()
+    admit_invariant = bool(torch.equal(alone, among))
+    check(admit_invariant, "contracts: a prompt's admission logits differ "
+                           "alone and in a group of four")
+    # the batched prefill that admission ran before: not batch-invariant
+    b_alone, _, _ = MD.prefill_slots(gcfg, model, toks[:1], lengths[:1])
+    b_among, _, _ = MD.prefill_slots(gcfg, model, toks[:4], lengths[:4])
+    batched_gap = float((b_alone[0] - b_among[0]).abs().max())
+    # what the batch-1 rule costs: one group of four 256-token prompts
+    t4 = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                       device=device)
+    l4 = torch.full((4,), 256, dtype=torch.int32, device=device)
+    cache4 = MD.init_slot_cache(gcfg, 4, 512, device)
+    slots4 = np.arange(4, dtype=np.int32)
+    admit_step = ST.make_slot_admit(gcfg)
+
+    def batched():
+        _, k, v = MD.prefill_slots(gcfg, model, t4, l4)
+        MD.insert_slots(cache4, slots4, k, v, l4)
+
+    per_row_ms = host_ms(lambda: admit_step(model, cache4, t4, l4, slots4))
+    batched_ms = host_ms(batched)
+    del cache4
+    free()
+
+    # ---- fused K steps against K single steps
     K = 4
     seen = []
     real = MD.decode_step_slots
@@ -507,13 +1099,111 @@ def contracts(cfg, model, device):
     fused_step = all(torch.equal(a, b) for a, b in zip(fused, stepwise))
     check(len(fused) == K and len(stepwise) == K, "contracts: step count")
     check(bool((block[:, :, 2] == 1).all()), "contracts: finite lane")
+    check(fused_step, "contracts: fused K steps != K single steps on logits")
+
+    # ---- the paged pool against the dense cache: admission, one decode step
+    la_d, _ = admitted_cache(gcfg, model, toks, lengths, device)
+    la_p, pc = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
+    lp, _ = MD.decode_step_slots(gcfg, model, pc, tok, act)
+    torch.cuda.synchronize()
     return dict(gather_vs_ragged_logits_bitwise=gather_ragged,
                 fused_vs_stepwise_logits_bitwise=fused_step,
-                prefill_alone_vs_in_batch_logits_bitwise=prefill_invariant,
-                prefill_alone_vs_in_batch_max_abs_gap=prefill_gap)
+                prefill_alone_vs_in_batch_logits_bitwise=admit_invariant,
+                batched_prefill_alone_vs_in_batch_max_abs_gap=batched_gap,
+                admission_group_of_4x256_ms=dict(batch_invariant=per_row_ms,
+                                                 batched_prefill=batched_ms),
+                paged_vs_dense=dict(
+                    admission_logits_max_abs_gap=float(
+                        (la_p - la_d).abs().max()),
+                    decode_logits_max_abs_gap=float((lp - lg).abs().max()),
+                    decode_logits_bitwise=bool(torch.equal(lp, lg)),
+                    decode_argmax_equal_share=float(
+                        (lp.argmax(-1) == lg.argmax(-1)).float().mean())))
+
+
+def contracts_int8(cfg, model, device):
+    """Int8 gather == int8 ragged on the logits of a decode step."""
+    from repro_torch.models import model as MD
+    gen = torch.Generator(device=device).manual_seed(5)
+    B, S = 8, 64
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
+    act = torch.ones((B,), dtype=torch.bool, device=device)
+    out = {}
+    for name in ("gather", "ragged"):
+        c = with_dispatch(cfg, name, B)
+        _, cache = admitted_cache(c, model, toks, lengths, device)
+        out[name], _ = MD.decode_step_slots(c, model, cache, tok, act)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out["gather"], out["ragged"]))
+    check(bool(torch.isfinite(out["gather"]).all()),
+          "int8 contracts: non-finite logits")
+    check(bitwise, "int8 gather != int8 ragged on decode logits")
+    return dict(int8_gather_vs_ragged_logits_bitwise=bitwise)
 
 
 # ---------------------------------------------------------------------------
+
+def rehearse(args, full_cfg, device):
+    """The reduced fp32 config served on the card and on the CPU in every
+    form, token for token. Returns the dense run on the card (its admission
+    shapes size the kernel phase)."""
+    from repro_torch.models import model as MD
+    small = full_cfg.reduced().replace(dtype="float32")
+    trace = make_trace(small.vocab_size, args.seed)
+    cpu_model = MD.init(small, "cpu", seed=args.seed)
+    gpu_model = MD.init(small, device, seed=args.seed)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    zero = {name: 0 for name in TABLE}
+    out = {}
+    forms = (("dense", {}, "bf16", "dense"), ("paged", PAGED, "bf16", "bf16"),
+             ("paged_int8kv", PAGED_INT8, "bf16", "int8"),
+             ("int8_experts", {}, "int8", "dense"))
+    for form, kw, experts, kv in forms:
+        if form == "int8_experts":
+            quantize(cpu_model)
+            quantize(gpu_model)
+            for a, b in zip(cpu_model.state_dict().values(),
+                            gpu_model.state_dict().values()):
+                check(torch.equal(a, b.cpu()), "rehearse: int8 tables on the "
+                                               "card differ from the CPU's")
+        on_cpu = serve(small, cpu_model, trace, "cpu", **kw)
+        on_gpu = serve(small, gpu_model, trace, device, **kw)
+        check_launches(on_gpu, small.n_layers, experts=experts, kv=kv)
+        check(on_cpu["launches"] == zero, "the CPU path launched a kernel")
+        check(on_gpu["tokens"] == on_cpu["tokens"],
+              f"reduced fp32 model, {form}: tokens on the card differ from "
+              f"the CPU's")
+        check(on_gpu["admits"] == on_cpu["admits"], "admission shapes differ")
+        check(on_gpu["paging_stats"] == on_cpu["paging_stats"],
+              f"{form}: paging stats differ")
+        if kv != "dense":
+            check(on_gpu["paging_stats"]["prefix_hits"] > 0,
+                  f"{form}: no prefix hit on the shared-prefix trace")
+        out[form] = on_gpu
+    check(out["paged"]["tokens"] == out["dense"]["tokens"],
+          "reduced fp32 model on the card: paged tokens differ from dense")
+    dense = out["dense"]
+    largest = max(dense["admits"], key=lambda s: s[1])
+    emit("rehearse", config=small.name, forms=[f[0] for f in forms],
+         token_equal_card_vs_cpu=True, paged_equal_dense_on_card=True,
+         requests=len(trace), admissions=dense["admits"],
+         largest_bucket=largest[1],
+         grouped_rows_at_full_width=largest[1] * full_cfg.moe.top_k,
+         paging_stats={f: out[f]["paging_stats"] for f in ("paged",
+                                                           "paged_int8kv")},
+         launches={f: out[f]["launches"] for f in out})
+    del cpu_model, gpu_model
+    free()
+    return dense, largest[1] * full_cfg.moe.top_k
+
+
+def decode_lens(trace) -> torch.Tensor:
+    """Valid rows of 8 busy slots half-way through their 32 new tokens."""
+    return torch.tensor([len(r["prompt"]) + 16 for r in trace[:8]],
+                        dtype=torch.int32)
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -526,6 +1216,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode block of the uncompressed model "
                          "with torch.profiler and print where its time goes")
+    ap.add_argument("--witness-layers", type=int, default=0,
+                    help="also read the paged int8 pool's top-1 against the "
+                         "bf16 pool at full width and this depth on the card "
+                         "and on the CPU's plain path (minutes of CPU; off "
+                         "by default)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -555,91 +1250,121 @@ def main(argv=None) -> int:
            full_cfg.vocab_size) == (2048, 32, 4, 128, 128, 8, 768, 151936),
           "qwen3-moe-30b-a3b widths changed")
 
-    # ---- rehearse: reduced config, card vs CPU, and the admission shapes
-    small = configs.get(ARCH).reduced().replace(dtype="float32")
-    trace_small = make_trace(small.vocab_size, args.seed)
-    from repro_torch.models import model as MD
-    cpu_model = MD.init(small, "cpu", seed=args.seed)
-    gpu_model = MD.init(small, device, seed=args.seed)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    on_cpu = serve(small, cpu_model, trace_small, "cpu")
-    on_gpu = serve(small, gpu_model, trace_small, device)
-    check_launches(on_gpu, small.n_layers)
-    check(on_cpu["launches"] == {"gather_swiglu": 0, "grouped_swiglu": 0},
-          "the CPU path launched a kernel")
-    check(on_gpu["tokens"] == on_cpu["tokens"],
-          "reduced fp32 model: tokens on the card differ from the CPU's")
-    check(on_gpu["admits"] == on_cpu["admits"], "admission shapes differ")
-    largest = max(on_gpu["admits"], key=lambda s: s[0] * s[1])
-    admission_rows = largest[0] * largest[1] * full_cfg.moe.top_k
-    emit("rehearse", config=small.name, token_equal_card_vs_cpu=True,
-         requests=len(trace_small), admissions=on_gpu["admits"],
-         largest_admission=largest, grouped_rows_at_full_width=admission_rows,
-         launches=on_gpu["launches"])
-    del cpu_model, gpu_model
-    free()
+    # ---- rehearse: reduced config, card vs CPU, every form
+    t0 = time.perf_counter()
+    small_dense, admission_rows = rehearse(args, full_cfg, device)
+    reduced_top1 = quality(args, full_cfg, device)
+    t_rehearse = time.perf_counter() - t0
 
     # ---- kernels
+    t0 = time.perf_counter()
+    trace = make_trace(full_cfg.vocab_size, args.seed)
     n_cases, worst = case_list(device)
-    checks, entries = main_path_shapes(device, full_cfg, admission_rows)
+    checks, entries, quant_bitwise = main_path_shapes(
+        device, full_cfg, admission_rows, decode_lens(trace))
     emit("kernels", cases_passed=n_cases, worst_abs_err_case_list=worst,
-         card=card, checks=checks)
+         quantize_card_equals_cpu_bitwise=quant_bitwise, card=card,
+         checks=checks)
+    t_kernels = time.perf_counter() - t0
 
-    # ---- serve: full width, bf16
+    # ---- serve: full width; bf16 weights with the dense cache, the paged
+    # pool and the paged int8 pool, then the same weights as int8 tables
+    t0 = time.perf_counter()
     cfg = full_cfg.replace(n_layers=args.layers)
-    trace = make_trace(cfg.vocab_size, args.seed)
     model, build_s = build_model(cfg, device, args.seed)
-    weights_gb = sum(p.numel() * p.element_size()
-                     for p in model.parameters()) / 1e9
     emit("contracts", layers=cfg.n_layers, **contracts(cfg, model, device))
+    total_launches = {name: 0 for name in TABLE}
+
+    def record(res, form, mcfg, n_weights, experts="bf16", kv="dense", **extra):
+        check_launches(res, mcfg.n_layers, experts=experts, kv=kv)
+        for name in total_launches:
+            total_launches[name] += res["launches"][name]
+        emit("serve", model=mcfg.name, form=form, layers=mcfg.n_layers,
+             dtype=mcfg.dtype, weights_gb=n_weights, **extra,
+             **serve_summary(res, card))
+
+    bf16_gb = weights_gb(model)
     serve(cfg, model, trace[:2], device)                # warm the libraries up
-    res = serve(cfg, model, trace, device)
-    check_launches(res, cfg.n_layers)
-    check(res["admits"] == on_gpu["admits"],
+    dense = serve(cfg, model, trace, device)
+    check(dense["admits"] == small_dense["admits"],
           "admission shapes differ from the rehearsal")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit("serve", model=cfg.name, form="uncompressed", layers=cfg.n_layers,
-         dtype=cfg.dtype, weights_gb=weights_gb, init_s=build_s,
-         peak_memory_gb=peak_gb, lm_head_logits=(
-             "fp32 from torch.mm(out_dtype=float32)"
-             if numerics.mm_out_dtype_available()
-             else "bf16 product widened to fp32"),
-         **serve_summary(res, card))
-    total_launches = dict(res["launches"])
+    record(dense, "uncompressed", cfg, bf16_gb, init_s=build_s,
+           lm_head_logits=("fp32 from torch.mm(out_dtype=float32)"
+                           if numerics.mm_out_dtype_available()
+                           else "bf16 product widened to fp32"))
     if args.profile:
         emit("profile", card=card, **profile_block(cfg, model, trace, device))
+    pred = {"dense": teacher_forced(cfg, model, trace, dense["tokens"], device)}
+    for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
+                         ("paged int8 KV", PAGED_INT8, "int8")):
+        serve(cfg, model, trace[:2], device, **kw)
+        res = serve(cfg, model, trace, device, **kw)
+        check(res["paging_stats"]["prefix_hits"] > 0,
+              f"{form}: no prefix hit on the shared-prefix trace")
+        pred[form] = teacher_forced(cfg, model, trace, dense["tokens"], device,
+                                    kv=kv)
+        record(res, form, cfg, bf16_gb, kv=kv,
+               free_running_agreement_with_dense=top1(res["tokens"],
+                                                      dense["tokens"]),
+               teacher_forced_top1_vs_dense=top1(pred[form], dense["tokens"]))
+    q_s = quantize(model)
+    emit("contracts", layers=cfg.n_layers, form="int8 experts",
+         **contracts_int8(cfg, model, device))
+    serve(cfg, model, trace[:2], device)
+    res = serve(cfg, model, trace, device)
+    pred["int8 experts"] = teacher_forced(cfg, model, trace, dense["tokens"],
+                                          device)
+    record(res, "int8 experts, uncompressed", cfg, weights_gb(model),
+           experts="int8", quantize_s=q_s,
+           free_running_agreement_with_dense=top1(res["tokens"],
+                                                  dense["tokens"]),
+           teacher_forced_top1_vs_dense=top1(pred["int8 experts"],
+                                             dense["tokens"]))
     del model
     free()
 
+    # ---- merged M = N/2 on the suffix, bf16 then int8
     mcfg = cfg.compressed(full_cfg.moe.n_experts // 2,
                           split=int(0.6 * cfg.n_layers))
+    form = f"merged M={mcfg.moe_merged} on layers [{mcfg.moe_split}, " \
+           f"{mcfg.n_layers})"
     model, build_s = build_model(mcfg, device, args.seed)
-    weights_gb = sum(p.numel() * p.element_size()
-                     for p in model.parameters()) / 1e9
     serve(mcfg, model, trace[:2], device)
-    res_m = serve(mcfg, model, trace, device)
-    check_launches(res_m, mcfg.n_layers)
-    emit("serve", model=mcfg.name, form=f"merged M={mcfg.moe_merged} on layers "
-         f"[{mcfg.moe_split}, {mcfg.n_layers})", layers=mcfg.n_layers,
-         dtype=mcfg.dtype, weights_gb=weights_gb, init_s=build_s,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         **serve_summary(res_m, card))
-    for name in total_launches:
-        total_launches[name] += res_m["launches"][name]
+    merged = serve(mcfg, model, trace, device)
+    record(merged, form, mcfg, weights_gb(model), init_s=build_s)
+    q_s = quantize(model)
+    serve(mcfg, model, trace[:2], device)
+    res = serve(mcfg, model, trace, device)
+    merged_top1 = top1(teacher_forced(mcfg, model, trace, merged["tokens"],
+                                      device), merged["tokens"])
+    record(res, form + ", int8 experts", mcfg, weights_gb(model),
+           experts="int8", quantize_s=q_s,
+           free_running_agreement_with_bf16_merged=top1(res["tokens"],
+                                                        merged["tokens"]),
+           teacher_forced_top1_vs_bf16_merged=merged_top1)
     del model
     free()
+    # teacher forcing runs at the served batch: the dense engine's own
+    # stream must read exactly 1.0, so every other reading is the form's
+    full_width = {form: top1(p, dense["tokens"]) for form, p in pred.items()}
+    check(full_width["dense"] == 1.0,
+          f"full width: the dense engine's stream teacher-forced at its "
+          f"served batch reads {full_width['dense']}, not 1.0")
+    full_width["int8 experts, merged (vs bf16 merged)"] = merged_top1
+    full_width["paged int8 KV vs paged bf16 KV, same contexts"] = top1(
+        pred["paged int8 KV"], pred["paged bf16 KV"])
+    emit("top1", card=card, reduced=reduced_top1,
+         full_width=dict(layers=cfg.n_layers,
+                         teacher_forced_top1_vs_dense=full_width))
+    t_serve = time.perf_counter() - t0
 
     # ---- variants at a small depth: decode_block=1 and dispatch="ragged"
+    t0 = time.perf_counter()
     vcfg = full_cfg.replace(n_layers=args.variant_layers)
     model, _ = build_model(vcfg, device, args.seed)
 
     def tps(r):
         return sum(map(len, r["tokens"])) / r["wall_s"]
-
-    def agree(a, b):
-        flat = [x == y for ta, tb in zip(a["tokens"], b["tokens"])
-                for x, y in zip(ta, tb)]
-        return sum(flat) / len(flat)
 
     base = serve(vcfg, model, trace, device)
     check_launches(base, vcfg.n_layers)
@@ -647,12 +1372,8 @@ def main(argv=None) -> int:
     check_launches(rag, vcfg.n_layers, dispatch="ragged")
     k1 = serve(vcfg, model, trace, device, decode_block=1)
     check_launches(k1, vcfg.n_layers)
-    # decode_block changes WHEN requests are admitted (every step instead of
-    # every 8th), hence which requests share a prefill batch; the library's
-    # matrix products are not bitwise the same across batch sizes, so on the
-    # staggered trace bf16 tokens may part ways. On a trace whose arrivals and
-    # completions fall on block boundaries both engines admit the same groups
-    # at the same steps, and there the tokens must be identical.
+    # a trace whose arrivals and completions fall on block boundaries: both
+    # engines admit the same groups at the same steps
     aligned = [dict(r, arrival_time=float(np.ceil(r["arrival_time"] / 8) * 8),
                     max_new_tokens=33) for r in trace]
     base_a = serve(vcfg, model, aligned, device)
@@ -669,29 +1390,39 @@ def main(argv=None) -> int:
         decode_block_1_staggered=dict(
             token_equal=k1["tokens"] == base["tokens"],
             same_admission_groups=k1["admits"] == base["admits"],
-            share_of_tokens_equal=agree(k1, base), tokens_per_s=tps(k1)))
+            share_of_tokens_equal=top1(k1["tokens"], base["tokens"]), tokens_per_s=tps(k1)))
     emit("serve", form="variants", card=card, **variants)
     check(variants["dispatch_ragged"]["token_equal"],
           "dispatch='ragged' gives other tokens than dispatch='gather'")
     check(variants["decode_block_1_same_admission_groups"]["token_equal"],
           "decode_block=1 gives other tokens than decode_block=8 although "
           "both admitted the same groups at the same steps")
+    # every prompt is admitted alone, so WHEN it is admitted and with whom
+    # does not change its tokens: the staggered trace must agree too
+    check(variants["decode_block_1_staggered"]["token_equal"],
+          "decode_block=1 gives other tokens than decode_block=8 on the "
+          "staggered trace")
     del model
     free()
+    t_variants = time.perf_counter() - t0
+    if args.witness_layers > 0:
+        emit("witness", card=card, **cpu_witness(args, full_cfg, device))
 
     # ---- the record
     kernels = []
     for name, meta in TABLE.items():
         rec = entries[name]
         kernels.append(dict(
-            name=name, route=meta["route"], source=meta["source"],
+            name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=total_launches[name],
             max_abs_err=rec["max_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=None, shape=rec["shape"]))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"elapsed_s {time.perf_counter() - t_start:.1f}", flush=True)
+    print(json.dumps({"seconds": dict(
+        rehearse=t_rehearse, kernels=t_kernels, serve=t_serve,
+        variants=t_variants, total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,12 @@ module per layer, so every stacked leaf is sliced along axis 0. Leaf names
 inside a layer are the reference's (``attn.wq wk wv wo``, ``moe.router wg wu
 wd remap live``, ``ln1 ln2 final_ln .scale``, ``embed.tok embed.head``).
 Every shape is checked and a missing or an extra leaf raises.
+
+Int8 expert tables cross as the reference stores them: a stack whose tree
+holds ``moe.qexp.{wg,wu,wd,wg_scale,wu_scale,wd_scale}`` (from
+``repro.core.quant.quantize_model_experts`` or an int8 compression plan)
+becomes a stack of quantized layers (:mod:`repro_torch.core.quant`), int8
+staying int8 and the scales fp32.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
@@ -58,6 +65,11 @@ def from_reference_params(tree: dict, cfg: ModelConfig, device,
     with torch.device("meta"):
         model = Model(cfg, "meta", gen)
     flat = _flatten(tree)
+    for stack in ("stack", "stack_c"):
+        if hasattr(model, stack) and any(
+                name.startswith(f"{stack}.moe.qexp.") for name in flat):
+            for block in getattr(model, stack):
+                Q.quantize_moe(block.moe)
     targets = _targets(model)
 
     # reference name -> list of (port name) per layer slice, or one name

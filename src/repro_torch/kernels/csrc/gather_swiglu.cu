@@ -34,9 +34,9 @@ int gather_launch(const void* x, const void* wg, const void* wu, const void* wd,
                   int T_, int E, int d, int f, int k, cudaStream_t stream) {
   const int n_pairs = T_ * k;
   PairLayout lay{idx, k, E, n_pairs};
-  int err = launch_up_down<T, 1, PairLayout>(
-      (const T*)x, (const T*)wg, (const T*)wu, (const T*)wd, (T*)h, (T*)y, lay,
-      n_pairs, d, f, stream);
+  int err = launch_up_down<T, T, T, 1, PairLayout>(
+      (const T*)x, (const T*)wg, (const T*)wu, (const T*)wd, nullptr, nullptr,
+      nullptr, (T*)h, (T*)y, lay, n_pairs, d, f, stream);
   if (err != 0) return err;
   combine_kernel<T><<<dim3(T_, ceil_div(d, kThreads)), kThreads, 0, stream>>>(
       (const T*)y, w, (T*)out, d, k);

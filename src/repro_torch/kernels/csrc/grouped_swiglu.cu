@@ -6,33 +6,14 @@
 
 namespace moe {
 
-template <typename T, int R>
-int grouped_launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, const int* group_sizes, void* h, void* out,
-                   int T_, int E, int d, int f, cudaStream_t stream) {
-  SegmentLayout lay{group_sizes, E, T_, R};
-  // every expert can end in one partial block: ceil(T/R) + min(E, T) bounds
-  // the number of blocks whatever the group sizes are
-  const int n_blocks = ceil_div(T_, R) + (E < T_ ? E : T_);
-  return launch_up_down<T, R, SegmentLayout>(
-      (const T*)x, (const T*)wg, (const T*)wu, (const T*)wd, (T*)h, (T*)out,
-      lay, n_blocks, d, f, stream);
-}
-
 template <typename T>
-int grouped_dispatch(const void* x, const void* wg, const void* wu,
-                     const void* wd, const int* group_sizes, void* h, void* out,
-                     int T_, int E, int d, int f, int rows, cudaStream_t s) {
-  switch (rows) {
-    case 8:
-      return grouped_launch<T, 8>(x, wg, wu, wd, group_sizes, h, out, T_, E, d, f, s);
-    case 4:
-      return grouped_launch<T, 4>(x, wg, wu, wd, group_sizes, h, out, T_, E, d, f, s);
-    case 1:
-      return grouped_launch<T, 1>(x, wg, wu, wd, group_sizes, h, out, T_, E, d, f, s);
-    default:
-      return -2;
-  }
+int grouped_plain(const void* x, const void* wg, const void* wu, const void* wd,
+                  const int* group_sizes, void* h, void* out, int T_, int E,
+                  int d, int f, int rows, cudaStream_t s) {
+  return grouped_dispatch<T, T, T>((const T*)x, (const T*)wg, (const T*)wu,
+                                   (const T*)wd, nullptr, nullptr, nullptr,
+                                   group_sizes, (T*)h, (T*)out, T_, E, d, f,
+                                   rows, s);
 }
 
 }  // namespace moe
@@ -49,10 +30,10 @@ extern "C" int grouped_swiglu_launch(const void* x, const void* wg,
   if (T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return moe::grouped_dispatch<float>(x, wg, wu, wd, group_sizes, h, out, T,
-                                        E, d, f, rows, s);
+    return moe::grouped_plain<float>(x, wg, wu, wd, group_sizes, h, out, T, E,
+                                     d, f, rows, s);
   if (dtype == 1)
-    return moe::grouped_dispatch<__nv_bfloat16>(x, wg, wu, wd, group_sizes, h,
-                                                out, T, E, d, f, rows, s);
+    return moe::grouped_plain<__nv_bfloat16>(x, wg, wu, wd, group_sizes, h, out,
+                                             T, E, d, f, rows, s);
   return -1;
 }

@@ -1,12 +1,20 @@
 // Per-expert SwiGLU for MoE layers on Hopper (sm_90a): the arithmetic shared by
-// gather_swiglu.cu (decode) and grouped_swiglu.cu (admission / ragged).
+// gather_swiglu.cu / gather_swiglu_q.cu (decode) and grouped_swiglu.cu /
+// grouped_swiglu_q.cu (admission / ragged).
 //
 // Every output element is produced by ONE thread that walks its reduction
 // axis in index order with fp32 fmaf:
 //
 //   up   : g[c] = sum_{i<d} x[i] * wg[e][i][c]     (and u with wu), i ascending
-//          h[c] = round_T(silu(g[c]) * u[c])
+//          h[c] = round_H(silu(g[c]) * u[c])
 //   down : y[c] = round_T(sum_{j<f} h[j] * wd[e][j][c]), j ascending
+//
+// Plain tables (Wt = T): the stored weight, widened; h is rounded to the
+// model type (H = T). Int8 tables (Wt = int8): the weight is
+// __fmul_rn((float)q, scale[e][c]) with the scale of the OUTPUT column c (f for
+// wg/wu, d for wd), one rounding the compiler may not contract into the fma
+// that follows, and h stays fp32 (H = float): the only rounding to the model
+// type is the output's.
 //
 // The order depends on nothing but (d, f): not on how many rows a block holds,
 // not on the token count, not on which of the two wrappers asked. That is what
@@ -67,6 +75,35 @@ struct Num<__nv_bfloat16> {
   }
 };
 
+// How a thread turns W adjacent stored weights of one row of a table into
+// fp32. `sc` holds the scales of its W output columns (int8 only).
+template <typename Wt>
+struct Weight {
+  static constexpr bool kQuant = false;
+  template <int W>
+  static __device__ __forceinline__ void load(const Wt* p, const float (&)[W],
+                                              float (&o)[W]) {
+    Num<Wt>::template load<W>(p, o);
+  }
+};
+
+template <>
+struct Weight<signed char> {
+  static constexpr bool kQuant = true;
+  template <int W>
+  static __device__ __forceinline__ void load(const signed char* p,
+                                              const float (&sc)[W],
+                                              float (&o)[W]) {
+    if constexpr (W == 2) {
+      const char2 v = *reinterpret_cast<const char2*>(p);
+      o[0] = __fmul_rn((float)v.x, sc[0]);
+      o[1] = __fmul_rn((float)v.y, sc[1]);
+    } else {
+      o[0] = __fmul_rn((float)*p, sc[0]);
+    }
+  }
+};
+
 // The rows one block works on: `nrows` consecutive rows of the row space,
 // starting at `row0`, all through expert `expert`. nrows == 0: nothing to do.
 struct RowBlock {
@@ -123,11 +160,14 @@ struct SegmentLayout {
 };
 
 // acc[n][r][q] = sum_{i<depth} rows[r][i] * table_n[i][c + q], i ascending.
-// `rows` is shared memory [R][depth] fp32; table_n is [depth][ncols] in T.
-template <typename T, int R, int W, int NTAB>
+// `rows` is shared memory [R][depth] fp32; table_n is [depth][ncols] in Wt;
+// s0/s1 are the tables' scale rows [ncols] (int8 only, else unused).
+template <typename Wt, int R, int W, int NTAB>
 __device__ __forceinline__ void rows_dot_columns(const float* rows, int depth,
-                                                 const T* t0, const T* t1,
-                                                 int ncols, int c,
+                                                 const Wt* t0, const Wt* t1,
+                                                 const float* s0,
+                                                 const float* s1, int ncols,
+                                                 int c,
                                                  float (&acc)[NTAB][R][W]) {
 #pragma unroll
   for (int n = 0; n < NTAB; ++n)
@@ -135,13 +175,26 @@ __device__ __forceinline__ void rows_dot_columns(const float* rows, int depth,
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int q = 0; q < W; ++q) acc[n][r][q] = 0.0f;
-  const T* p0 = t0 + c;
-  const T* p1 = NTAB > 1 ? t1 + c : t0 + c;
+  float sc[NTAB][W];
+#pragma unroll
+  for (int n = 0; n < NTAB; ++n)
+#pragma unroll
+    for (int q = 0; q < W; ++q) sc[n][q] = 1.0f;
+  if constexpr (Weight<Wt>::kQuant) {
+#pragma unroll
+    for (int n = 0; n < NTAB; ++n)
+#pragma unroll
+      for (int q = 0; q < W; ++q) sc[n][q] = (n == 0 ? s0 : s1)[c + q];
+  }
+  const Wt* p0 = t0 + c;
+  const Wt* p1 = NTAB > 1 ? t1 + c : t0 + c;
 #pragma unroll 4
   for (int i = 0; i < depth; ++i) {
     float a[NTAB][W];
-    Num<T>::template load<W>(p0 + (size_t)i * ncols, a[0]);
-    if constexpr (NTAB > 1) Num<T>::template load<W>(p1 + (size_t)i * ncols, a[1]);
+    Weight<Wt>::template load<W>(p0 + (size_t)i * ncols, sc[0], a[0]);
+    if constexpr (NTAB > 1)
+      Weight<Wt>::template load<W>(p1 + (size_t)i * ncols, sc[NTAB - 1],
+                                   a[NTAB - 1]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const float xv = rows[r * depth + i];
@@ -158,13 +211,15 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
   return (g * s) * u;
 }
 
-// h[row][c] = round_T(silu(x_row . wg[e][:, c]) * (x_row . wu[e][:, c]))
+// h[row][c] = round_H(silu(x_row . wg[e][:, c]) * (x_row . wu[e][:, c]))
 // grid: (row blocks, ceil(f / (kThreads * W))); shared memory: R * d floats.
-template <typename T, int R, int W, typename Layout>
+// sg/su: scales [E][f] (int8 tables; nullptr otherwise).
+template <typename T, typename Wt, typename H, int R, int W, typename Layout>
 __global__ void __launch_bounds__(kThreads)
-swiglu_up_kernel(const T* __restrict__ x, const T* __restrict__ wg,
-                 const T* __restrict__ wu, T* __restrict__ h, Layout lay, int d,
-                 int f) {
+swiglu_up_kernel(const T* __restrict__ x, const Wt* __restrict__ wg,
+                 const Wt* __restrict__ wu, const float* __restrict__ sg,
+                 const float* __restrict__ su, H* __restrict__ h, Layout lay,
+                 int d, int f) {
   extern __shared__ float rows[];
   const RowBlock rb = lay.block(blockIdx.x);
   if (rb.nrows == 0) return;
@@ -178,40 +233,47 @@ swiglu_up_kernel(const T* __restrict__ x, const T* __restrict__ wg,
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * W;
   if (c >= f) return;
   const size_t off = (size_t)rb.expert * d * f;
+  const size_t soff = (size_t)rb.expert * f;
   float acc[2][R][W];
-  rows_dot_columns<T, R, W, 2>(rows, d, wg + off, wu + off, f, c, acc);
+  rows_dot_columns<Wt, R, W, 2>(rows, d, wg + off, wu + off,
+                                Weight<Wt>::kQuant ? sg + soff : sg,
+                                Weight<Wt>::kQuant ? su + soff : su, f, c,
+                                acc);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < rb.nrows) {
 #pragma unroll
       for (int q = 0; q < W; ++q)
         h[(size_t)(rb.row0 + r) * f + c + q] =
-            Num<T>::from_f32(silu_mul(acc[0][r][q], acc[1][r][q]));
+            Num<H>::from_f32(silu_mul(acc[0][r][q], acc[1][r][q]));
     }
   }
 }
 
 // y[row][c] = round_T(h_row . wd[e][:, c])
 // grid: (row blocks, ceil(d / (kThreads * W))); shared memory: R * f floats.
-template <typename T, int R, int W, typename Layout>
+// sd: scales [E][d] (int8 tables; nullptr otherwise).
+template <typename T, typename Wt, typename H, int R, int W, typename Layout>
 __global__ void __launch_bounds__(kThreads)
-swiglu_down_kernel(const T* __restrict__ h, const T* __restrict__ wd,
-                   T* __restrict__ y, Layout lay, int d, int f) {
+swiglu_down_kernel(const H* __restrict__ h, const Wt* __restrict__ wd,
+                   const float* __restrict__ sd, T* __restrict__ y, Layout lay,
+                   int d, int f) {
   extern __shared__ float rows[];
   const RowBlock rb = lay.block(blockIdx.x);
   if (rb.nrows == 0) return;
   for (int r = 0; r < R; ++r) {
     const bool live = r < rb.nrows;
-    const T* src = h + (size_t)(rb.row0 + (live ? r : 0)) * f;
+    const H* src = h + (size_t)(rb.row0 + (live ? r : 0)) * f;
     for (int i = threadIdx.x; i < f; i += blockDim.x)
-      rows[r * f + i] = live ? Num<T>::to_f32(src[i]) : 0.0f;
+      rows[r * f + i] = live ? Num<H>::to_f32(src[i]) : 0.0f;
   }
   __syncthreads();
   const int c = (blockIdx.y * blockDim.x + threadIdx.x) * W;
   if (c >= d) return;
   const size_t off = (size_t)rb.expert * f * d;
+  const float* s = Weight<Wt>::kQuant ? sd + (size_t)rb.expert * d : sd;
   float acc[1][R][W];
-  rows_dot_columns<T, R, W, 1>(rows, f, wd + off, wd + off, d, c, acc);
+  rows_dot_columns<Wt, R, W, 1>(rows, f, wd + off, wd + off, s, s, d, c, acc);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (r < rb.nrows) {
@@ -225,48 +287,87 @@ swiglu_down_kernel(const T* __restrict__ h, const T* __restrict__ wd,
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Launches the up and the down pass for `n_blocks` row blocks on `stream`.
-// `h` is scratch [rows, f], `y` the result [rows, d]. W = 2 needs even widths
+// `h` is scratch [rows, f] in H, `y` the result [rows, d] in T; sg/su/sd are
+// the int8 tables' scales (nullptr for plain tables). W = 2 needs even widths
 // (the caller checks the base pointers' alignment). Returns a cudaError_t.
-template <typename T, int R, typename Layout>
-int launch_up_down(const T* x, const T* wg, const T* wu, const T* wd, T* h, T* y,
-                   Layout lay, int n_blocks, int d, int f, cudaStream_t stream) {
+template <typename T, typename Wt, typename H, int R, typename Layout>
+int launch_up_down(const T* x, const Wt* wg, const Wt* wu, const Wt* wd,
+                   const float* sg, const float* su, const float* sd, H* h,
+                   T* y, Layout lay, int n_blocks, int d, int f,
+                   cudaStream_t stream) {
   if (n_blocks <= 0) return 0;
   const size_t smem_up = (size_t)R * d * sizeof(float);
   const size_t smem_down = (size_t)R * f * sizeof(float);
   cudaError_t err;
   if (f % 2 == 0) {
-    auto k = swiglu_up_kernel<T, R, 2, Layout>;
+    auto k = swiglu_up_kernel<T, Wt, H, R, 2, Layout>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_up);
     if (err != cudaSuccess) return (int)err;
     k<<<dim3(n_blocks, ceil_div(f, kThreads * 2)), kThreads, smem_up, stream>>>(
-        x, wg, wu, h, lay, d, f);
+        x, wg, wu, sg, su, h, lay, d, f);
   } else {
-    auto k = swiglu_up_kernel<T, R, 1, Layout>;
+    auto k = swiglu_up_kernel<T, Wt, H, R, 1, Layout>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_up);
     if (err != cudaSuccess) return (int)err;
     k<<<dim3(n_blocks, ceil_div(f, kThreads)), kThreads, smem_up, stream>>>(
-        x, wg, wu, h, lay, d, f);
+        x, wg, wu, sg, su, h, lay, d, f);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (d % 2 == 0) {
-    auto k = swiglu_down_kernel<T, R, 2, Layout>;
+    auto k = swiglu_down_kernel<T, Wt, H, R, 2, Layout>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_down);
     if (err != cudaSuccess) return (int)err;
     k<<<dim3(n_blocks, ceil_div(d, kThreads * 2)), kThreads, smem_down, stream>>>(
-        h, wd, y, lay, d, f);
+        h, wd, sd, y, lay, d, f);
   } else {
-    auto k = swiglu_down_kernel<T, R, 1, Layout>;
+    auto k = swiglu_down_kernel<T, Wt, H, R, 1, Layout>;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_down);
     if (err != cudaSuccess) return (int)err;
     k<<<dim3(n_blocks, ceil_div(d, kThreads)), kThreads, smem_down, stream>>>(
-        h, wd, y, lay, d, f);
+        h, wd, sd, y, lay, d, f);
   }
   return (int)cudaGetLastError();
+}
+
+// The SegmentLayout launch of the grouped kernels: every expert can end in one
+// partial block, so ceil(T/R) + min(E, T) bounds the number of blocks
+// whatever the group sizes are.
+template <typename T, typename Wt, typename H, int R>
+int grouped_launch(const T* x, const Wt* wg, const Wt* wu, const Wt* wd,
+                   const float* sg, const float* su, const float* sd,
+                   const int* group_sizes, H* h, T* out, int T_, int E, int d,
+                   int f, cudaStream_t stream) {
+  SegmentLayout lay{group_sizes, E, T_, R};
+  const int n_blocks = ceil_div(T_, R) + (E < T_ ? E : T_);
+  return launch_up_down<T, Wt, H, R, SegmentLayout>(
+      x, wg, wu, wd, sg, su, sd, h, out, lay, n_blocks, d, f, stream);
+}
+
+// grouped_launch with the row count R chosen at run time (8, 4 or 1: the
+// wrapper picks the largest whose rows fit in shared memory); -2 otherwise.
+template <typename T, typename Wt, typename H>
+int grouped_dispatch(const T* x, const Wt* wg, const Wt* wu, const Wt* wd,
+                     const float* sg, const float* su, const float* sd,
+                     const int* group_sizes, H* h, T* out, int T_, int E, int d,
+                     int f, int rows, cudaStream_t s) {
+  switch (rows) {
+    case 8:
+      return grouped_launch<T, Wt, H, 8>(x, wg, wu, wd, sg, su, sd, group_sizes,
+                                         h, out, T_, E, d, f, s);
+    case 4:
+      return grouped_launch<T, Wt, H, 4>(x, wg, wu, wd, sg, su, sd, group_sizes,
+                                         h, out, T_, E, d, f, s);
+    case 1:
+      return grouped_launch<T, Wt, H, 1>(x, wg, wu, wd, sg, su, sd, group_sizes,
+                                         h, out, T_, E, d, f, s);
+    default:
+      return -2;
+  }
 }
 
 }  // namespace moe

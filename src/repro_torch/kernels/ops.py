@@ -8,11 +8,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decode_moe, grouped_mlp, ref
+from repro_torch.kernels import decode_moe, grouped_mlp, paged_attention as PA
+from repro_torch.kernels import ref
 
-#: the kernel modules by public name, each with ``LAUNCHES``, ``plain`` and
-#: the wrapper of the same name
-KERNELS = {"gather_swiglu": decode_moe, "grouped_swiglu": grouped_mlp}
+#: every hand-written kernel by public name (``_common.Kernel``: ``name``,
+#: ``plain`` and the launch count ``LAUNCHES``)
+KERNELS = {k.name: k for k in (decode_moe.GATHER, grouped_mlp.GROUPED,
+                               decode_moe.GATHER_Q, grouped_mlp.GROUPED_Q,
+                               PA.PAGED, PA.PAGED_Q)}
 
 
 def gather_swiglu(x: torch.Tensor, wg, wu, wd, idx, w) -> torch.Tensor:
@@ -29,10 +32,40 @@ def grouped_swiglu(x: torch.Tensor, wg, wu, wd, group_sizes) -> torch.Tensor:
     return ref.grouped_swiglu(x, wg, wu, wd, group_sizes)
 
 
+def gather_swiglu_q(x: torch.Tensor, qt, idx, w) -> torch.Tensor:
+    """:func:`gather_swiglu` over int8 tables (``QuantizedExpertTables``)."""
+    if x.is_cuda:
+        return decode_moe.gather_swiglu_q(x, qt, idx, w)
+    return ref.gather_swiglu_q(x, qt, idx, w)
+
+
+def grouped_swiglu_q(x: torch.Tensor, qt, group_sizes) -> torch.Tensor:
+    """:func:`grouped_swiglu` over int8 tables (``QuantizedExpertTables``)."""
+    if x.is_cuda:
+        return grouped_mlp.grouped_swiglu_q(x, qt, group_sizes)
+    return ref.grouped_swiglu_q(x, qt, group_sizes)
+
+
+def paged_attention(q: torch.Tensor, kp, vp, tab, lens) -> torch.Tensor:
+    """Decode attention over a paged KV pool."""
+    if q.is_cuda:
+        return PA.paged_attention(q, kp, vp, tab, lens)
+    return ref.paged_attention(q, kp, vp, tab, lens)
+
+
+def paged_attention_q(q: torch.Tensor, kp, vp, ks, vs, tab,
+                      lens) -> torch.Tensor:
+    """Decode attention over an int8 paged KV pool with per-(row, head)
+    fp32 scales."""
+    if q.is_cuda:
+        return PA.paged_attention_q(q, kp, vp, ks, vs, tab, lens)
+    return ref.paged_attention_q(q, kp, vp, ks, vs, tab, lens)
+
+
 def launch_counts() -> dict:
-    return {name: mod.LAUNCHES for name, mod in KERNELS.items()}
+    return {name: k.LAUNCHES for name, k in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.LAUNCHES = 0
+    for k in KERNELS.values():
+        k.LAUNCHES = 0

@@ -1,16 +1,25 @@
-"""Plain PyTorch versions of the two MoE kernels of the serving path.
+"""Plain PyTorch versions of the kernels of the serving path.
 
 Device-agnostic, the same arithmetic and rounding points as the reference's
-jnp oracles: gate and up products in fp32, ``silu(g) * u`` rounded to the
-model type, the down product in fp32 rounded to the model type, and (for the
-gather form) an fp32 weighted sum over the k slots rounded once. The CPU path
-of :mod:`repro_torch.kernels.ops` runs these; on the card they are only what
-the hand-written kernels are held against.
+jnp oracles (``repro/kernels/ref.py``). MoE, plain tables: gate and up
+products in fp32, ``silu(g) * u`` rounded to the model type, the down product
+in fp32 rounded to the model type, and (for the gather form) an fp32 weighted
+sum over the k slots rounded once. MoE, int8 tables: the same with the tables
+dequantized to fp32 (``q * scale``) and ``h`` kept fp32: one rounding, at the
+output. Paged attention: the pool gathered through the block table into a
+contiguous view (sentinel entries clipped into range), then the dense path's
+``_sdpa`` arithmetic with rows past ``lens`` masked; int8 pools dequantized to
+the query's type first. The CPU path of :mod:`repro_torch.kernels.ops` runs
+these; on the card they are only what the hand-written kernels are held
+against.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core import quant as Q
+from repro_torch.models.layers import _sdpa
 
 F32 = torch.float32
 
@@ -19,22 +28,34 @@ F32 = torch.float32
 _CHUNK_BYTES = 1 << 30
 
 
+def _w32(w: torch.Tensor, e: torch.Tensor, scale) -> torch.Tensor:
+    """The fp32 tables of experts ``e``: widened, or ``q * scale``."""
+    if scale is None:
+        return w[e].to(F32)
+    return w[e].to(F32) * scale[e]
+
+
 def _rows_swiglu(x: torch.Tensor, eid: torch.Tensor, wg: torch.Tensor,
-                 wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+                 wu: torch.Tensor, wd: torch.Tensor,
+                 scales=None) -> torch.Tensor:
     """Row r of ``x`` through expert ``eid[r]``; result in ``x.dtype``.
     One batched product per row, so a row's arithmetic does not depend on
-    which other rows share the call."""
+    which other rows share the call. ``scales``: the int8 tables' (sg, su,
+    sd); then ``h`` stays fp32."""
     n, d = x.shape
     f = wg.shape[-1]
+    sg, su, sd = scales if scales is not None else (None, None, None)
     out = torch.empty((n, d), dtype=x.dtype, device=x.device)
     chunk = max(1, _CHUNK_BYTES // (3 * d * f * 4))
     for lo in range(0, n, chunk):
         e = eid[lo:lo + chunk]
         xr = x[lo:lo + chunk].to(F32).unsqueeze(1)               # [c, 1, d]
-        g = torch.bmm(xr, wg[e].to(F32))                         # [c, 1, f]
-        u = torch.bmm(xr, wu[e].to(F32))
-        h = (F.silu(g) * u).to(x.dtype)
-        y = torch.bmm(h.to(F32), wd[e].to(F32))                  # [c, 1, d]
+        g = torch.bmm(xr, _w32(wg, e, sg))                       # [c, 1, f]
+        u = torch.bmm(xr, _w32(wu, e, su))
+        h = F.silu(g) * u
+        if scales is None:
+            h = h.to(x.dtype).to(F32)
+        y = torch.bmm(h, _w32(wd, e, sd))                        # [c, 1, d]
         out[lo:lo + chunk] = y.squeeze(1).to(x.dtype)
     return out
 
@@ -86,3 +107,90 @@ def gather_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     eid = idx.reshape(-1).to(torch.long).clamp(0, E - 1)
     y = _rows_swiglu(x.repeat_interleave(k, dim=0), eid, wg, wu, wd)
     return combine_in_order(y.reshape(T, k, d), w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 expert tables
+# ---------------------------------------------------------------------------
+
+def _q_args(qt):
+    return (qt.wg, qt.wu, qt.wd), (qt.wg_scale, qt.wu_scale, qt.wd_scale)
+
+
+def grouped_swiglu_q(x: torch.Tensor, qt, group_sizes: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`grouped_swiglu` over :class:`repro_torch.core.quant.
+    QuantizedExpertTables`: fp32 end to end, one downcast at the output."""
+    T = x.shape[0]
+    if T == 0:
+        return torch.zeros_like(x)
+    tabs, scales = _q_args(qt)
+    return _rows_swiglu(x, rows_to_experts(group_sizes, T), *tabs,
+                        scales=scales)
+
+
+def gather_swiglu_q_rows(x: torch.Tensor, qt, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-pair rows of the int8 gather kernel: ``[T, k, d]`` at
+    ``x.dtype``, row (t, j) = ``SwiGLU_{idx[t, j]}(x[t])`` (ids clipped to
+    ``[0, E)``), before any combine."""
+    T, d = x.shape
+    k = idx.shape[-1]
+    if T == 0:
+        return torch.zeros((0, k, d), dtype=x.dtype, device=x.device)
+    E = qt.wg.shape[0]
+    eid = idx.reshape(-1).to(torch.long).clamp(0, E - 1)
+    tabs, scales = _q_args(qt)
+    y = _rows_swiglu(x.repeat_interleave(k, dim=0), eid, *tabs, scales=scales)
+    return y.reshape(T, k, d)
+
+
+def gather_swiglu_q(x: torch.Tensor, qt, idx: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """Int8 decode-mode MoE: the per-pair rows, then the fp32 combine in slot
+    order, rounded once."""
+    return combine_in_order(gather_swiglu_q_rows(x, qt, idx), w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+def _gather_pool(pool: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """``[n_blocks, bs, ...]`` pool + ``[B, mb]`` table -> ``[B, mb*bs, ...]``.
+    Entries ``>= n_blocks`` (sentinels) clip to the last block; their rows
+    are masked downstream."""
+    nb, bs = pool.shape[0], pool.shape[1]
+    g = pool[tab.to(torch.long).clamp(0, nb - 1)]               # [B, mb, bs, ..]
+    return g.reshape((g.shape[0], g.shape[1] * bs) + tuple(g.shape[3:]))
+
+
+def _paged_sdpa(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention over a gathered view: the dense path's ``_sdpa``
+    (``models/layers.py``) with rows ``>= lens`` masked. q: ``[B, nq, hd]``;
+    kc/vc: ``[B, S, nkv, hd]``. Returns ``[B, nq, hd]``."""
+    S = kc.shape[1]
+    n_rep = q.shape[1] // kc.shape[2]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lens.to(q.device)[:, None])[:, None, None, :]
+    return _sdpa(q[:, None], kc, vc, mask, n_rep)[:, 0]
+
+
+def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                    tab: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """q: ``[B, nq, hd]``; kp/vp: ``[n_blocks, bs, nkv, hd]``; tab:
+    ``[B, mb]`` block ids (sentinel = n_blocks); lens: ``[B]`` valid rows.
+    Returns ``[B, nq, hd]``."""
+    return _paged_sdpa(q, _gather_pool(kp, tab), _gather_pool(vp, tab), lens)
+
+
+def paged_attention_q(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
+                      ks: torch.Tensor, vs: torch.Tensor, tab: torch.Tensor,
+                      lens: torch.Tensor) -> torch.Tensor:
+    """Int8 pools (kp/vp int8, ks/vs fp32 ``[n_blocks, bs, nkv]``): the
+    gathered view is dequantized to ``q.dtype`` with ``dequantize_kv``, the
+    helper the paged admission forward uses too."""
+    kc = Q.dequantize_kv(_gather_pool(kp, tab), _gather_pool(ks, tab), q.dtype)
+    vc = Q.dequantize_kv(_gather_pool(vp, tab), _gather_pool(vs, tab), q.dtype)
+    return _paged_sdpa(q, kc, vc, lens)

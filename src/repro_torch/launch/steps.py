@@ -35,17 +35,6 @@ def admit_pad_shapes(buckets, s_max: int) -> Tuple[int, ...]:
     return tuple(sorted(shapes))
 
 
-def admit_trace_budget(buckets, s_max: int, n_slots: int) -> int:
-    """Number of distinct (pad shape, pow2 group size) admission shapes: the
-    engine pads every admission group to one of them."""
-    shapes = admit_pad_shapes(buckets, s_max)
-    sizes, p = 1, 1
-    while p < n_slots:
-        p *= 2
-        sizes += 1
-    return len(shapes) * sizes
-
-
 def _require_greedy(temperature: float) -> None:
     if temperature > 0.0:
         raise NotImplementedError(
@@ -76,22 +65,64 @@ def make_slot_decode(cfg: ModelConfig) -> Callable:
     return slot_decode
 
 
+def _admit_rows_one_by_one(admit_one: Callable, cache, slots):
+    """Run ``admit_one(i)`` -> logits ``[1, V]`` for every row i of an
+    admission group and stack the results: (logits ``[B, V]``, greedy
+    ``[B]``). Every slot must be real (``0 <= slots[i] < n_slots``): the
+    engine never pads a group."""
+    n_slots = cache["pos"].shape[0]
+    slots = torch.as_tensor(slots).tolist()
+    if not all(0 <= s < n_slots for s in slots):
+        raise ValueError(f"admission slots {slots} outside [0, {n_slots})")
+    logits = torch.cat([admit_one(i) for i in range(len(slots))], dim=0)
+    return logits, torch.argmax(logits, dim=-1).to(torch.int32)
+
+
 def make_slot_admit(cfg: ModelConfig) -> Callable:
     """Admission: prefill + slot insert + first-token argmax.
 
     slot_admit(model, cache, tokens [B, S_bucket], lengths [B], slots [B])
-    -> (logits [B, V], greedy [B] int32, cache). Rows may be padding (the
-    engine pads groups to a power of two): their ``slots`` entry lies outside
-    ``[0, n_slots)`` and :func:`repro_torch.models.model.insert_slots` leaves
-    them out of the write, so their garbage KV and lengths never land in the
-    cache. ``slots`` is a host array."""
+    -> (logits [B, V], greedy [B] int32, cache). ``slots`` is a host array
+    of B distinct real slots.
+
+    Each real row is prefilled ALONE, at batch 1 and its bucket length, and
+    inserted. So a prompt's admission arithmetic does not depend on which
+    other requests share its group: the library's matrix products pick their
+    algorithm by the number of rows, and a batched prefill gave the same
+    prompt other logits alone than in a group of four on the card. The group
+    stays one step call with one readback of ``greedy``."""
     @torch.inference_mode()
     def slot_admit(model, cache, tokens, lengths, slots):
-        logits, k_new, v_new = MD.prefill_slots(cfg, model, tokens, lengths)
-        cache = MD.insert_slots(cache, slots, k_new, v_new, lengths)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        def one(i):
+            logits, k_new, v_new = MD.prefill_slots(
+                cfg, model, tokens[i:i + 1], lengths[i:i + 1])
+            MD.insert_slots(cache, slots[i:i + 1], k_new, v_new,
+                            lengths[i:i + 1])
+            return logits
+        logits, greedy = _admit_rows_one_by_one(one, cache, slots)
         return logits, greedy, cache
     return slot_admit
+
+
+def make_slot_admit_paged(cfg: ModelConfig) -> Callable:
+    """Admission into the PAGED pool.
+
+    slot_admit_paged(model, cache, tokens [B, S_bucket], lengths [B],
+    slots [B], pos0 [B]) -> (logits [B, V], greedy [B] int32, cache).
+    ``tokens`` holds each request's SUFFIX (prompt minus its shared-prefix
+    rows) and ``pos0`` the shared rows. Each row runs
+    :func:`repro_torch.models.model.admit_slots_paged` alone, at batch 1, as
+    in :func:`make_slot_admit`."""
+    @torch.inference_mode()
+    def slot_admit_paged(model, cache, tokens, lengths, slots, pos0):
+        def one(i):
+            logits, _ = MD.admit_slots_paged(
+                cfg, model, cache, tokens[i:i + 1], lengths[i:i + 1],
+                slots[i:i + 1], pos0[i:i + 1])
+            return logits
+        logits, greedy = _admit_rows_one_by_one(one, cache, slots)
+        return logits, greedy, cache
+    return slot_admit_paged
 
 
 def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,

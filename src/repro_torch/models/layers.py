@@ -1,5 +1,6 @@
-"""Core layers of the serving path: RMSNorm, RoPE, GQA attention (prefill and
-per-slot decode), SwiGLU MLP, embedding and LM head.
+"""Core layers of the serving path: RMSNorm, RoPE, GQA attention (prefill,
+per-slot decode, and decode / verify-shaped admission over the paged KV pool),
+SwiGLU MLP, embedding and LM head.
 
 ``nn.Module``s own the parameters (``requires_grad=False``); the arithmetic is
 in plain functions on tensors that take the module as ``p``, mirroring the
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.numerics import ein, ein32, mm32
 
@@ -187,6 +189,122 @@ def attn_decode_slots(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     out = ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
     return out, cache_k, cache_v
+
+
+def _paged_write(pool: torch.Tensor, scales: Optional[torch.Tensor],
+                 blk: torch.Tensor, r: torch.Tensor, val: torch.Tensor) -> None:
+    """Write KV rows into the block pool, IN PLACE.
+
+    pool: ``[n_blocks + 1, bs, nkv, hd]`` (model type, or int8 when
+    ``scales`` ``[n_blocks + 1, bs, nkv]`` is given); blk / r: ``[...]``
+    block ids and in-block rows; val: ``[..., nkv, hd]``. Sentinel ids
+    (``== n_blocks``: frozen slots past their reservation, rows past
+    ``s_max``, released slots) land in the pool's last block, a write-only
+    sink that no table entry owns. The reference lets its scatter drop them;
+    an out-of-range ``index_put_`` on CUDA is a device-side assert, and
+    selecting the real rows on the host would cost a device read per layer
+    and step, since which rows are real depends on ``pos`` on the device.
+    Real writes never collide: a slot's writable blocks are its own."""
+    blk = blk.to(torch.long)
+    r = r.to(torch.long)
+    if scales is None:
+        pool[blk, r] = val.to(pool.dtype)
+        return
+    q, s = Q.quantize_kv(val)
+    pool[blk, r] = q
+    scales[blk, r] = s
+
+
+def _paged_rows(tab: torch.Tensor, positions: torch.Tensor, n_blocks: int,
+                bs: int):
+    """(block id, in-block row) of absolute ``positions`` ``[B, ...]``
+    through the slots' table rows ``[B, mb]``; positions at or past
+    ``s_max = mb * bs`` map to the sentinel ``n_blocks``."""
+    B, mb = tab.shape
+    j = torch.clamp(positions // bs, max=mb - 1).to(torch.long)
+    b_iota = torch.arange(B, device=tab.device).reshape(
+        (B,) + (1,) * (positions.dim() - 1))
+    blk = torch.where(positions < mb * bs, tab[b_iota, j].to(torch.long),
+                      n_blocks)
+    return blk, positions % bs
+
+
+def attn_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                      kp: torch.Tensor, vp: torch.Tensor,
+                      ks: Optional[torch.Tensor], vs: Optional[torch.Tensor],
+                      tab: torch.Tensor, pos: torch.Tensor, *, inv_freq):
+    """Single-token decode over the paged KV pool (pools updated IN PLACE).
+
+    The paged sibling of :func:`attn_decode_slots`: the new row is written
+    through the slot's block table, then the attention runs through
+    ``ops.paged_attention`` / ``ops.paged_attention_q`` (the hand-written
+    kernels on the card, the plain versions on the CPU). x: ``[B, 1, d]``;
+    kp/vp: ``[n_blocks + 1, bs, nkv, hd]`` (int8 with ks/vs
+    ``[n_blocks + 1, bs, nkv]`` fp32 scales, else ks = vs = None); tab:
+    ``[B, mb]`` (sentinel ``n_blocks``); pos: ``[B]``. Returns out
+    ``[B, 1, d]``."""
+    from repro_torch.kernels import ops
+    B = x.shape[0]
+    q, k, v = _qkv(cfg, p, x)
+    positions = pos[:, None]
+    if inv_freq is not None:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    nb, bs = kp.shape[0] - 1, kp.shape[1]
+    blk, r = _paged_rows(tab, pos, nb, bs)
+    _paged_write(kp, ks, blk, r, k[:, 0])
+    _paged_write(vp, vs, blk, r, v[:, 0])
+    lens = pos + 1
+    q1 = q[:, 0].contiguous()
+    if ks is None:
+        out = ops.paged_attention(q1, kp, vp, tab, lens)
+    else:
+        out = ops.paged_attention_q(q1, kp, vp, ks, vs, tab, lens)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
+    return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
+
+
+def attn_verify_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                      kp: torch.Tensor, vp: torch.Tensor,
+                      ks: Optional[torch.Tensor], vs: Optional[torch.Tensor],
+                      tab: torch.Tensor, pos: torch.Tensor, *, inv_freq):
+    """T-token attention over the paged KV pool: the paged admission forward
+    (pools updated IN PLACE).
+
+    Slot b's T tokens sit at absolute positions ``pos[b] .. pos[b] + T - 1``
+    (``pos`` = the shared-prefix rows it adopted); their K/V rows are written
+    through the table, then the slot's whole ``s_max`` view is gathered
+    (dequantized to the model type with ``dequantize_kv`` when the pool is
+    int8) and attended with the dense path's :func:`_sdpa`, query i seeing
+    rows ``<= pos[b] + i``. Sentinel entries clip into range and their rows
+    are masked. x: ``[B, T, d]``; pools / tab as :func:`attn_decode_paged`.
+    Returns out ``[B, T, d]``."""
+    B, T, _ = x.shape
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qkv(cfg, p, x)
+    positions = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+    if inv_freq is not None:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    nb, bs = kp.shape[0] - 1, kp.shape[1]
+    mb = tab.shape[1]
+    s_max = mb * bs
+    blk, r = _paged_rows(tab, positions, nb, bs)
+    _paged_write(kp, ks, blk, r, k)
+    _paged_write(vp, vs, blk, r, v)
+    tabc = tab.to(torch.long).clamp(0, nb - 1)
+    kc = kp[tabc].reshape(B, s_max, cfg.n_kv_heads, cfg.hd)
+    vc = vp[tabc].reshape(B, s_max, cfg.n_kv_heads, cfg.hd)
+    if ks is not None:
+        kc = Q.dequantize_kv(kc, ks[tabc].reshape(B, s_max, cfg.n_kv_heads),
+                             x.dtype)
+        vc = Q.dequantize_kv(vc, vs[tabc].reshape(B, s_max, cfg.n_kv_heads),
+                             x.dtype)
+    valid = (torch.arange(s_max, device=x.device)[None, None, :]
+             <= positions[:, :, None])[:, None, :, :]      # [B, 1, T, s_max]
+    out = _sdpa(q, kc, vc, valid, n_rep)
+    out = out.reshape(B, T, cfg.n_heads * cfg.hd)
+    return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,13 @@
   init_slot_cache(cfg, n_slots, s_max, device)         -> cache dict
   prefill_slots(cfg, model, tokens, lengths)           -> (logits, k, v)
   insert_slots(cache, slots, k_new, v_new, lengths)    -> cache (in place)
+  init_paged_cache(cfg, n_slots, s_max, device, ...)   -> paged cache dict
+  admit_slots_paged(cfg, model, cache, tokens, lengths, slots, pos0)
+                                                       -> (logits, cache)
   decode_step_slots(cfg, model, cache, token, active)  -> (logits, cache)
+
+``decode_step_slots`` serves both layouts: a cache with ``"kp"`` is the paged
+pool.
 
 The KV cache is updated IN PLACE (the reference returns new arrays): the
 dict handed in is the dict handed back. All forwards run under
@@ -95,6 +101,100 @@ def init_slot_cache(cfg: ModelConfig, n_slots: int, s_max: int,
             "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
 
 
+def init_paged_cache(cfg: ModelConfig, n_slots: int, s_max: int, device, *,
+                     n_blocks: int, block_size: int,
+                     kv_dtype: str = "bf16") -> Dict[str, torch.Tensor]:
+    """Paged KV pool of the continuous-batching engine.
+
+    ``kp``/``vp``: ``[L, n_blocks + 1, block_size, nkv, hd]`` in the model
+    type, or int8 with ``ks``/``vs`` ``[L, n_blocks + 1, block_size, nkv]``
+    fp32 scales when ``kv_dtype == "int8"``. Blocks ``0 .. n_blocks - 1`` are
+    the allocator's; the last one is a write-only sink for writes through a
+    sentinel id (see ``layers._paged_write``), one block per layer more than
+    the reference allocates. ``tab``: ``[n_slots + 1, s_max // block_size]``
+    int32 block ids, ``n_blocks`` (the sentinel) for unallocated entries and
+    the whole last row (the reference's row for admission pads, which the
+    allocator's host table keeps and ships whole; no step of the port reads
+    it). ``pos``: ``[n_slots]`` int32. Zeros everywhere, so a
+    never-written row is finite. Block ownership lives on the host
+    (``serving.paging.PagedAllocator``)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged serving is token-only (dense/moe), not {cfg.family}")
+    if s_max % block_size:
+        raise ValueError(f"s_max={s_max} not a multiple of "
+                         f"block_size={block_size}")
+    mb = s_max // block_size
+    pshape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    cache = {"pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+             "tab": torch.full((n_slots + 1, mb), n_blocks, dtype=torch.int32,
+                               device=device)}
+    if kv_dtype == "int8":
+        cache.update(
+            kp=torch.zeros(pshape, dtype=torch.int8, device=device),
+            vp=torch.zeros(pshape, dtype=torch.int8, device=device),
+            ks=torch.zeros(pshape[:-1], dtype=torch.float32, device=device),
+            vs=torch.zeros(pshape[:-1], dtype=torch.float32, device=device))
+    elif kv_dtype == "bf16":
+        dt = cfg.param_dtype
+        cache.update(kp=torch.zeros(pshape, dtype=dt, device=device),
+                     vp=torch.zeros(pshape, dtype=dt, device=device))
+    else:
+        raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
+                         f"{kv_dtype!r}")
+    return cache
+
+
+def _paged_forward(cfg: ModelConfig, model: Model,
+                   cache: Dict[str, torch.Tensor], x: torch.Tensor, stack_fn,
+                   tab: torch.Tensor, pos: torch.Tensor,
+                   inv_freq) -> torch.Tensor:
+    """Run a paged stack function over the model's stacks, each on its
+    slice of the pools' layer axis (``stack`` below ``cfg.moe_split``,
+    ``stack_c`` above). The pools are updated in place; ``pos`` / ``tab``
+    are the caller's business."""
+    quant = "ks" in cache
+    lo = 0
+    for blocks in model.stacks():
+        hi = lo + len(blocks)
+        x = stack_fn(cfg, blocks, x, cache["kp"][lo:hi], cache["vp"][lo:hi],
+                     cache["ks"][lo:hi] if quant else None,
+                     cache["vs"][lo:hi] if quant else None, tab, pos,
+                     inv_freq=inv_freq)
+        lo = hi
+    return x
+
+
+@torch.inference_mode()
+def admit_slots_paged(cfg: ModelConfig, model: Model,
+                      cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                      lengths: torch.Tensor, slots, pos0: torch.Tensor):
+    """Admit right-padded prompt SUFFIXES into the paged cache, IN PLACE.
+
+    tokens: ``[B, S_bucket]`` (each prompt minus the shared-prefix rows it
+    adopted); lengths: ``[B]`` true suffix lengths (>= 1); slots: ``[B]``
+    distinct real target slots, a host array (the engine never pads an
+    admission group, unlike the reference); pos0: ``[B]`` shared-prefix row
+    counts. A verify-shaped forward at absolute positions ``pos0[b] +
+    arange(S_bucket)``: the suffix attends the adopted prefix rows through
+    the slot's table, so with ``pos0 = 0`` it is the dense admission over a
+    paged layout. ``pos`` is set to ``pos0 + lengths``. Returns (logits
+    ``[B, V]`` fp32 at each row's last real suffix position, cache)."""
+    dev = tokens.device
+    slots_d = torch.as_tensor(slots).to(dev, torch.long)
+    inv_freq = _inv_freq(cfg, dev)
+    x = L.embed_apply(model.embed, tokens)
+    pos0 = pos0.to(dev, torch.int32)
+    x = _paged_forward(cfg, model, cache, x, T.stack_verify_paged,
+                       cache["tab"][slots_d], pos0, inv_freq)
+    cache["pos"][slots_d] = pos0 + lengths.to(dev, torch.int32)
+    x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
+    last = x[torch.arange(x.shape[0], device=dev),
+             lengths.to(dev, torch.long) - 1]
+    logits = L.lm_head(cfg, model.embed, last[:, None])[:, 0]
+    return logits, cache
+
+
 @torch.inference_mode()
 def prefill_slots(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
                   lengths: torch.Tensor):
@@ -127,12 +227,11 @@ def insert_slots(cache: Dict[str, torch.Tensor], slots, k_new: torch.Tensor,
                  v_new: torch.Tensor, lengths: torch.Tensor):
     """Write a whole admission group into the cache, IN PLACE.
 
-    k_new/v_new: [L, B, S_bucket, nkv, hd] from one batched
-    :func:`prefill_slots`; slots: [B] target slots (distinct where real);
-    lengths: [B]. Admission pads its groups to a power of two, and a pad row
-    carries a slot id outside ``[0, n_slots)``. The reference relies on its
-    scatter dropping such rows; an out-of-range ``index_put_`` on CUDA is a
-    device-side assert, so the real rows are selected first and only they
+    k_new/v_new: [L, B, S_bucket, nkv, hd] from :func:`prefill_slots`;
+    slots: [B] target slots (distinct where real); lengths: [B]. A row whose
+    slot id lies outside ``[0, n_slots)`` is padding. The reference relies on
+    its scatter dropping such rows; an out-of-range ``index_put_`` on CUDA is
+    a device-side assert, so the real rows are selected first and only they
     are written. ``slots`` is read on the host for that (hand it over as a
     host array or CPU tensor to avoid a device read)."""
     n_slots = cache["pos"].shape[0]
@@ -165,6 +264,12 @@ def decode_step_slots(cfg: ModelConfig, model: Model,
     inv_freq = _inv_freq(cfg, token.device)
     x = L.embed_apply(model.embed, token[:, None])
     pos = cache["pos"]
+    if "kp" in cache:                                  # the paged pool
+        x = _paged_forward(cfg, model, cache, x, T.stack_decode_paged,
+                           cache["tab"][:pos.shape[0]], pos, inv_freq)
+        cache["pos"] = torch.where(active, pos + 1, pos)
+        x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
+        return L.lm_head(cfg, model.embed, x)[:, 0], cache
     lo = 0
     for blocks in model.stacks():
         hi = lo + len(blocks)

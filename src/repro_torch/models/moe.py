@@ -16,10 +16,15 @@ pad every suffix layer's tables to the plan's largest M, and the router
 logits of any original expert whose remap lands on a pad row are masked, so
 the padding is unreachable even under a corrupted remap.
 
+Int8 tables (:mod:`repro_torch.core.quant`): a quantized layer holds a
+``qexp`` set of six tensors instead of ``wg``/``wu``/``wd``, and both paths
+dispatch to the ``_q`` kernels. The int8 gather kernel emits the per-pair rows
+and the combine runs outside it, in the same slot order as the ragged path's,
+so int8 gather == int8 ragged bitwise at any k too.
+
 ``dispatch="dense"`` (capacity dispatch), ``route`` / ``balance_loss``
-(training), ``capture=True`` (calibration), int8 ``qexp`` tables and expert
-parallelism belong to later slices of the port and raise
-``NotImplementedError`` here.
+(training), ``capture=True`` (calibration) and expert parallelism belong to
+later slices of the port and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 
+from repro_torch.core import quant as Q
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import combine_in_order
 from repro_torch.models.config import ModelConfig
@@ -70,11 +76,14 @@ class MoE(nn.Module):
 
 def n_real_experts(p: MoE) -> int:
     """Number of physically stored experts (M after compression, else N)."""
-    if hasattr(p, "qexp"):
-        raise NotImplementedError(
-            "int8 expert tables (qexp) are not ported yet: they come with the "
-            "gather_swiglu_q / grouped_swiglu_q kernels")
+    if Q.is_quantized(p):
+        return p.qexp.wg.shape[0]
     return p.wg.shape[0]
+
+
+def _quant_tables(p: MoE):
+    """The layer's ``QuantizedExpertTables``, or None for plain tables."""
+    return p.qexp.tables() if Q.is_quantized(p) else None
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +160,11 @@ def _moe_ragged(cfg: ModelConfig, p: MoE, xf: torch.Tensor, w: torch.Tensor,
     # host) and not scatter_add (atomics)
     group_sizes = (flat_idx[:, None] == torch.arange(
         E, device=xf.device)[None, :]).sum(dim=0).to(torch.int32)
-    ys = kops.grouped_swiglu(xs, p.wg, p.wu, p.wd, group_sizes)
+    qt = _quant_tables(p)
+    if qt is not None:
+        ys = kops.grouped_swiglu_q(xs, qt, group_sizes)
+    else:
+        ys = kops.grouped_swiglu(xs, p.wg, p.wu, p.wd, group_sizes)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * k, device=xf.device)
     y = ys.index_select(0, inv).reshape(T, k, d)
@@ -162,8 +175,11 @@ def _moe_gather(cfg: ModelConfig, p: MoE, xf: torch.Tensor, w: torch.Tensor,
                 idx: torch.Tensor) -> torch.Tensor:
     """xf: [T, d]; w/idx: [T, k] (idx in REAL expert space). Dropless:
     the decode-mode kernel, no sort and no scatter."""
-    n_real_experts(p)
-    y = kops.gather_swiglu(xf, p.wg, p.wu, p.wd, idx, w.to(F32))
+    qt = _quant_tables(p)
+    if qt is not None:
+        y = kops.gather_swiglu_q(xf, qt, idx, w.to(F32))
+    else:
+        y = kops.gather_swiglu(xf, p.wg, p.wu, p.wd, idx, w.to(F32))
     return y.to(xf.dtype)
 
 

@@ -70,3 +70,37 @@ def stack_decode_slots(cfg: ModelConfig, blocks: Sequence[Block],
         h = h + a
         h = h + _ffn(cfg, p, L.rmsnorm(p.ln2, h, cfg.norm_eps))
     return h, cache_k, cache_v
+
+
+def _sl(a: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
+    return None if a is None else a[i]
+
+
+def _stack_paged(attn_fn, cfg: ModelConfig, blocks: Sequence[Block],
+                 x: torch.Tensor, kp, vp, ks, vs, tab, pos, *, inv_freq):
+    h = x
+    for i, p in enumerate(blocks):
+        hn = L.rmsnorm(p.ln1, h, cfg.norm_eps)
+        h = h + attn_fn(cfg, p.attn, hn, kp[i], vp[i], _sl(ks, i), _sl(vs, i),
+                        tab, pos, inv_freq=inv_freq)
+        h = h + _ffn(cfg, p, L.rmsnorm(p.ln2, h, cfg.norm_eps))
+    return h
+
+
+def stack_decode_paged(cfg: ModelConfig, blocks: Sequence[Block],
+                       x: torch.Tensor, kp, vp, ks, vs, tab, pos, *, inv_freq):
+    """One-token decode over paged KV pools. kp/vp: ``[L, n_blocks + 1, bs,
+    nkv, hd]`` with L == len(blocks); ks/vs: ``[L, n_blocks + 1, bs, nkv]``
+    fp32 or None (pools in the model type); tab: ``[B, mb]`` (one allocator
+    owns the block ids of every layer); pos: ``[B]``. Pools updated IN PLACE
+    layer by layer. Returns y."""
+    return _stack_paged(L.attn_decode_paged, cfg, blocks, x, kp, vp, ks, vs,
+                        tab, pos, inv_freq=inv_freq)
+
+
+def stack_verify_paged(cfg: ModelConfig, blocks: Sequence[Block],
+                       x: torch.Tensor, kp, vp, ks, vs, tab, pos, *, inv_freq):
+    """T-token forward over paged KV pools (the paged admission forward, see
+    ``layers.attn_verify_paged``). x: ``[B, T, d]``. Returns y."""
+    return _stack_paged(L.attn_verify_paged, cfg, blocks, x, kp, vp, ks, vs,
+                        tab, pos, inv_freq=inv_freq)

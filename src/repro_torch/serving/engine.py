@@ -1,21 +1,35 @@
-"""Continuous-batching serving engine (PyTorch port, dense KV layout).
+"""Continuous-batching serving engine (PyTorch port).
 
-* **Slots.** The engine owns a persistent slotted KV cache
-  (``[L, n_slots, s_max, nkv, hd]`` + per-slot ``pos``), updated in place. A
-  request occupies one slot from admission to completion; eviction just marks
-  the slot free: stale rows are masked by the per-slot causal mask and
-  overwritten by the next occupant.
+* **Slots.** The engine owns a persistent KV cache, updated in place. A
+  request occupies one slot from admission to completion. Dense layout
+  (``kv_layout="dense"``): ``[L, n_slots, s_max, nkv, hd]`` + per-slot
+  ``pos``; eviction just marks the slot free, stale rows are masked by the
+  per-slot causal mask and overwritten by the next occupant.
+* **Paged KV (``kv_layout="paged"``).** A flat pool of ``kv_blocks`` blocks
+  of ``kv_block`` rows plus a per-slot block table owned by the host-side
+  ``serving.paging.PagedAllocator``. Admission reserves a request's whole row
+  budget (``prompt + max_new - 1``) up front, full prompt blocks are shared
+  copy-free between requests with identical prefixes (``prefix_sharing``;
+  registered only after the admission call that wrote them), eviction returns
+  blocks to the pool, and admission DEFERS the FIFO head while the pool cannot
+  supply its reservation (a deferred request that expires is shed with reason
+  ``pool_pressure``). ``kv_dtype="int8"`` stores the pool quantized with
+  per-(row, head) fp32 scales. The host table reaches the device as an
+  explicit copy before each step call (``_sync_tab``), never inside one.
 * **Admission.** Pending requests sit in a heap ordered by
   ``(arrival_time, uid, seq)``. At the top of every engine step each free slot
-  claims the next due request, and all requests admitted together that share
-  a prompt bucket are prefilled as ONE batch (padded to the next power of
-  two) and inserted with one write.
+  claims the next due request, and requests admitted together that share a
+  prompt bucket (paged: a SUFFIX bucket, past the shared-prefix rows) form
+  one admission group: one step call and one readback. Inside it each prompt
+  is prefilled alone (``steps.make_slot_admit``), so its tokens do not depend
+  on which requests share its group.
 * **Decode.** ``decode_block`` (K) decode steps run back to back on the
   device with on-device sampling and per-slot stop flags; finished slots
   freeze in place and ride along. The host reads back one packed ``[K, B, 3]``
   block per call. ``decode_block=1`` keeps the step-at-a-time loop (the
   parity reference). With ``dispatch='gather'`` the decode-sized MoE layers go
-  through the per-token gather kernel.
+  through the per-token gather kernel. Int8 expert tables (a model quantized
+  with ``core.quant.quantize_model_experts``) go through the ``_q`` kernels.
 * **Stop conditions.** Per-request ``max_new_tokens`` and optional
   ``eos_token``, evaluated on the device inside the block; freed slots admit
   at the next block boundary.
@@ -23,14 +37,13 @@
   request is shed with a reason instead of served, and the pending queue can
   be bounded (``max_pending`` / ``backpressure``).
 
-``EngineConfig`` keeps every field of the reference's. The values this slice
-of the port does not serve RAISE ``NotImplementedError`` at construction,
-never silently degrade: ``kv_layout="paged"``, ``kv_dtype="int8"``,
-``spec_draft`` (or a draft model), ``mesh``, ``temperature > 0``,
-``snapshot_every_steps > 0``, a fault plan, and ``trace_guard`` other than
-``"off"`` (there is no jit whose retraces a guard could count, so the port's
-default is ``"off"``; the reference's is ``"count"``). With
-``numeric_sentinel != "off"`` a non-finite logit row raises
+``EngineConfig`` keeps every field of the reference's. The values this port
+does not serve yet RAISE ``NotImplementedError`` at construction, never
+silently degrade: ``spec_draft`` (or a draft model), ``mesh``,
+``temperature > 0``, ``snapshot_every_steps > 0``, a fault plan, and
+``trace_guard`` other than ``"off"`` (there is no jit whose retraces a guard
+could count, so the port's default is ``"off"``; the reference's is
+``"count"``). With ``numeric_sentinel != "off"`` a non-finite logit row raises
 ``NumericHealthError`` (per-slot quarantine waits for the resilience slice).
 
 The clock is pluggable: ``clock='steps'`` interprets ``arrival_time`` in
@@ -48,8 +61,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import errors as ERR
+from repro_torch.core import quant as Q
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as MD
+from repro_torch.serving.paging import PagedAllocator
 
 
 @dataclasses.dataclass
@@ -74,6 +89,8 @@ class Request:
     # terminal status: "queued" until terminal, then "ok" | "shed"
     status: str = "queued"
     shed_reason: Optional[str] = None    # "deadline" | "pool_pressure"
+    # True once admission deferred this request for lack of pool blocks: a
+    # later expiry sheds it as "pool_pressure" rather than "deadline"
     deferred: bool = False
 
     @property
@@ -139,10 +156,6 @@ class EngineConfig:
 def _unsupported(ec: EngineConfig, faults, draft_cfg, draft_params) -> None:
     """Raise for every EngineConfig value this slice does not serve."""
     later = []
-    if ec.kv_layout == "paged":
-        later.append("kv_layout='paged' (paged KV slice)")
-    if ec.kv_dtype == "int8":
-        later.append("kv_dtype='int8' (paged KV slice)")
     if ec.spec_draft is not None or draft_cfg is not None \
             or draft_params is not None:
         later.append("speculative decoding (spec_draft / draft model)")
@@ -213,12 +226,13 @@ class Engine:
         if ec.combine_wire_dtype not in ("fp32", "int8"):
             raise ValueError(f"combine_wire_dtype must be 'fp32' or 'int8', "
                              f"got {ec.combine_wire_dtype!r}")
-        if ec.kv_layout != "dense":
+        if ec.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{ec.kv_layout!r}")
-        if ec.kv_dtype != "bf16":
-            raise ValueError(f"kv_dtype must be 'bf16' or 'int8', got "
-                             f"{ec.kv_dtype!r}")
+        if ec.kv_layout == "dense" and ec.kv_dtype != "bf16":
+            raise ValueError(
+                f"kv_dtype={ec.kv_dtype!r} requires kv_layout='paged' (the "
+                f"dense slot cache stores the model dtype)")
         self.cfg = cfg
         self.params = params if params is not None else MD.init(
             cfg, self.device, seed=ec.seed)
@@ -235,8 +249,24 @@ class Engine:
         # the ONLY prompt pad lengths admission may use; bucket_for fails
         # closed on non-membership
         self._pad_shapes = ST.admit_pad_shapes(self._buckets, ec.s_max)
-        self.cache = MD.init_slot_cache(cfg, ec.n_slots, ec.s_max, self.device)
-        self._admit_step = ST.make_slot_admit(cfg)
+        self._alloc: Optional[PagedAllocator] = None
+        self._tab_dirty = False
+        if ec.kv_layout == "paged":
+            n_blocks = ec.kv_blocks if ec.kv_blocks > 0 else (
+                ec.n_slots * ec.s_max // ec.kv_block)
+            # the allocator checks s_max % kv_block, init_paged_cache kv_dtype
+            self._alloc = PagedAllocator(n_slots=ec.n_slots, n_blocks=n_blocks,
+                                         block_size=ec.kv_block,
+                                         s_max=ec.s_max)
+            self.cache = MD.init_paged_cache(
+                cfg, ec.n_slots, ec.s_max, self.device, n_blocks=n_blocks,
+                block_size=ec.kv_block, kv_dtype=ec.kv_dtype)
+            self._tab_dirty = True
+            self._admit_step = ST.make_slot_admit_paged(cfg)
+        else:
+            self.cache = MD.init_slot_cache(cfg, ec.n_slots, ec.s_max,
+                                            self.device)
+            self._admit_step = ST.make_slot_admit(cfg)
         self._decode = ST.make_slot_decode(cfg)
         self._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
                                                        ec.temperature)
@@ -403,6 +433,7 @@ class Engine:
         now = self._now() if now is None else now
         finished = self._admit(now)
         if self._active.any():
+            self._sync_tab()
             _, aux, self.cache = self._decode(
                 self.params, self.cache, self._dev(self._last_tok),
                 self._dev(self._active))
@@ -444,6 +475,7 @@ class Engine:
             req = self._slot_req[s]
             rem[s] = req.max_new_tokens - len(req.out_tokens)
             eos[s] = -1 if req.eos_token is None else req.eos_token
+        self._sync_tab()
         block, _, self.cache = self._decode_multi(
             self.params, self.cache, self._dev(self._last_tok),
             self._dev(self._active), self._dev(rem), self._dev(eos))
@@ -492,7 +524,49 @@ class Engine:
             done.extend(advance())
         return sorted(done, key=lambda r: r.uid)
 
+    def expert_weight_dtypes(self) -> Tuple[str, str]:
+        """(prefix, suffix or uncompressed) expert-table storage: "int8" for
+        a stack of quantized layers, else "bf16" (the reference's names)."""
+        def one(key):
+            stack = getattr(self.params, key, None)
+            if stack is None or not hasattr(stack[0], "moe"):
+                return "bf16"
+            return "int8" if Q.is_quantized(stack[0].moe) else "bf16"
+        return one("stack"), one("stack_c" if hasattr(self.params, "stack_c")
+                                 else "stack")
+
+    @property
+    def kv_dtype_served(self) -> str:
+        """KV storage actually in the cache ("int8" only for the quantized
+        paged pool)."""
+        return ("int8" if self._alloc is not None
+                and self.ec.kv_dtype == "int8" else "bf16")
+
+    @property
+    def paging_stats(self) -> Dict[str, int]:
+        """Allocator telemetry (prefix hits and rows shared, deferrals,
+        registry evictions, copy-on-write copies, free blocks); empty in the
+        dense layout."""
+        if self._alloc is None:
+            return {}
+        return dict(self._alloc.stats, free_blocks=self._alloc.free_blocks)
+
     # ------------------------------------------------------------ internals
+
+    def _sync_tab(self) -> None:
+        """Ship the allocator's host block table to the device when it
+        changed: an explicit copy issued before a step call, never inside
+        one."""
+        if self._alloc is None or not self._tab_dirty:
+            return
+        self.cache["tab"].copy_(torch.from_numpy(self._alloc.tab))
+        self._tab_dirty = False
+
+    def _reserve_rows(self, req: Request) -> int:
+        """KV rows a request owns for its whole lifetime: every position it
+        writes (``prompt + max_new - 1``), reserved in full at admission so
+        decode never allocates."""
+        return req.n_prompt + req.max_new_tokens - 1
 
     def _now(self) -> float:
         if self.ec.clock == "steps":
@@ -539,15 +613,22 @@ class Engine:
 
     def _admit(self, now: float) -> List[Request]:
         """Fill free slots with due pending requests (prefill + insert +
-        first token), batching same-bucket admissions. Returns requests that
+        first token), grouping same-bucket admissions. Returns requests that
         finish AT admission (e.g. max_new_tokens == 1) and requests shed
-        because their deadline passed while they waited."""
+        because their deadline passed while they waited.
+
+        Paged layout: each claim first reserves its row budget with the
+        allocator, adopting any registered prefix chain (the shared rows
+        shrink the suffix that is forwarded). A failed reservation DEFERS the
+        FIFO head (nothing behind it may jump the queue) until eviction
+        returns blocks; a deferred request that expires sheds as
+        ``pool_pressure``."""
         finished: List[Request] = []
         if self._done_early:
             finished.extend(self._done_early)
             self._done_early.clear()
         free = [s for s in range(self.ec.n_slots) if not self._active[s]]
-        claimed: List[Tuple[Request, int]] = []
+        claimed: List[Tuple[Request, int, int]] = []
         while self._pending and self._pending[0][0] <= now:
             req = self._pending[0][-1]
             dl = req.effective_deadline
@@ -559,47 +640,67 @@ class Engine:
                 continue
             if not free:
                 break
+            shared = 0
+            if self._alloc is not None:
+                shared = self._alloc.admit(free[0], req.prompt,
+                                           self._reserve_rows(req))
+                if shared is None:
+                    req.deferred = True
+                    break                       # pool exhausted: defer head
+                self._tab_dirty = True
             heapq.heappop(self._pending)
-            claimed.append((req, free.pop(0)))
+            claimed.append((req, free.pop(0), shared))
         if not claimed:
             return finished
         if self.ec.batch_admission:
-            groups: Dict[int, List[Tuple[Request, int]]] = {}
-            for req, slot in claimed:
-                groups.setdefault(self.bucket_for(req.n_prompt),
-                                  []).append((req, slot))
+            # grouped by the bucket of the SUFFIX (the tokens the admission
+            # forward runs); in the dense layout shared is always 0
+            groups: Dict[int, List[Tuple[Request, int, int]]] = {}
+            for req, slot, shared in claimed:
+                groups.setdefault(self.bucket_for(req.n_prompt - shared),
+                                  []).append((req, slot, shared))
             for bucket in sorted(groups):
                 self._admit_group(bucket, groups[bucket], now, finished)
         else:
-            for req, slot in claimed:
-                self._admit_group(self.bucket_for(req.n_prompt),
-                                  [(req, slot)], now, finished)
+            for req, slot, shared in claimed:
+                self._admit_group(self.bucket_for(req.n_prompt - shared),
+                                  [(req, slot, shared)], now, finished)
         return finished
 
-    def _admit_group(self, bucket: int, group: List[Tuple[Request, int]],
+    def _admit_group(self, bucket: int,
+                     group: List[Tuple[Request, int, int]],
                      now: float, finished: List[Request]) -> None:
         """Prefill + insert + first token for one bucket's admissions as a
-        single step call. The batch is padded to the next power of two; pad
-        rows carry the slot id ``n_slots``, which ``insert_slots`` leaves out
-        of the write, so they never touch the cache."""
+        single step call with one readback. The step prefills each row alone
+        (``steps.make_slot_admit``), so the group is not padded. Paged rows
+        forward only the prompt SUFFIX past their shared-prefix rows; new
+        prefix chains are registered for sharing only AFTER the call that
+        wrote them (a same-cycle sharer must never adopt unwritten
+        blocks)."""
         B = len(group)
-        Bp = 1
-        while Bp < B:
-            Bp *= 2
-        toks = np.zeros((Bp, bucket), np.int32)
-        lengths = np.ones((Bp,), np.int32)
-        slots = np.full((Bp,), self.ec.n_slots, np.int32)   # pads: left out
-        for i, (req, slot) in enumerate(group):
-            toks[i, :req.n_prompt] = req.prompt
-            lengths[i] = req.n_prompt
+        toks = np.zeros((B, bucket), np.int32)
+        lengths = np.ones((B,), np.int32)
+        slots = np.zeros((B,), np.int32)
+        pos0 = np.zeros((B,), np.int32)
+        for i, (req, slot, shared) in enumerate(group):
+            suffix = req.prompt[shared:]
+            toks[i, :suffix.size] = suffix
+            lengths[i] = suffix.size
             slots[i] = slot
+            pos0[i] = shared
+        self._sync_tab()
+        paged_args = (self._dev(pos0),) if self._alloc is not None else ()
         _, greedy, self.cache = self._admit_step(
             self.params, self.cache, self._dev(toks), self._dev(lengths),
-            slots)
+            slots, *paged_args)
         self.counters["device_calls"] += 1
         first = greedy[:B].cpu().numpy()
         self.counters["host_syncs"] += 1
-        for i, (req, slot) in enumerate(group):
+        if self._alloc is not None and self.ec.prefix_sharing:
+            # the rows exist now; sharing begins at the NEXT admission cycle
+            for req, slot, _ in group:
+                self._alloc.register_prefix(slot, req.prompt)
+        for i, (req, slot, _) in enumerate(group):
             tok = int(first[i])
             req.out_tokens.append(tok)
             self.counters["tokens_out"] += 1
@@ -620,6 +721,12 @@ class Engine:
             self._inflight.discard(req.uid)
         self._slot_req[slot] = None
         self._active[slot] = False
+        if self._alloc is not None:
+            # blocks return to the pool (registry pins keep shared prefix
+            # chains alive); the slot's table row goes to the sentinel, so a
+            # frozen slot's writes land in the pool's sink block
+            self._alloc.release(slot)
+            self._tab_dirty = True
 
 
 # ---------------------------------------------------------------------------

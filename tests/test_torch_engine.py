@@ -177,7 +177,10 @@ def test_deadlines_shed_and_bounded_queue(small_model):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout="paged"), dict(kv_dtype="int8"), dict(spec_draft="/x"),
+    # the paged forms are served; what a later slice adds to them still raises
+    dict(kv_layout="paged", spec_draft="/x"),
+    dict(kv_dtype="int8", kv_layout="paged", mesh="data=2,model=2"),
+    dict(spec_draft="/x"),
     dict(mesh="data=2,model=2"), dict(temperature=0.7),
     dict(snapshot_every_steps=4, snapshot_dir="/x"),
     dict(trace_guard="count"), dict(trace_guard="strict"),

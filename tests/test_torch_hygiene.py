@@ -28,6 +28,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_the_reference():
     mods = list(_modules())
     assert len(mods) > 25 and "repro_torch.serving.engine" in mods
+    assert {"repro_torch.core.quant", "repro_torch.serving.paging",
+            "repro_torch.kernels.paged_attention"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -90,7 +92,10 @@ def test_engine_default_device_is_cuda_and_raises_without_one():
 def test_kernel_sources_are_in_the_package_and_build_is_lazy():
     from repro_torch.kernels import _build
     names = {p.name for p in _build.CSRC.iterdir()}
-    assert {"gather_swiglu.cu", "grouped_swiglu.cu", "moe_swiglu.cuh"} <= names
+    assert {"gather_swiglu.cu", "grouped_swiglu.cu", "moe_swiglu.cuh",
+            "gather_swiglu_q.cu", "grouped_swiglu_q.cu", "paged_attention.cu",
+            "paged_attention_q.cu", "paged_attention.cuh"} <= names
+    assert {f"{n}.cu" for n in _build.KERNEL_SOURCES} <= names
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "build/" in gitignore

@@ -27,8 +27,6 @@ from _torch_port import no_activation_mesh  # noqa: F401
 def test_admission_padding_policy_equals_reference(buckets, s_max, n_slots):
     assert ST.admit_pad_shapes(buckets, s_max) == \
         RST.admit_pad_shapes(buckets, s_max)
-    assert ST.admit_trace_budget(buckets, s_max, n_slots) == \
-        RST.admit_trace_budget(buckets, s_max, n_slots)
     assert ST.admit_pad_shapes(buckets, s_max)[-1] == s_max
 
 
