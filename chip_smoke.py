@@ -8,7 +8,7 @@ Needs CUDA and ``nvcc``; exits non-zero without them. Phases, each printing
 one JSON line:
 
   env       what it runs on (repro_torch.env.probe)
-  build     compiles the six CUDA kernels from src/repro_torch/kernels/csrc
+  build     compiles the seven CUDA kernels from src/repro_torch/kernels/csrc
   rehearse  the serve trace on the reduced fp32 config: the engine on the card
             (CUDA kernels) against the same engine on the CPU (plain PyTorch),
             token for token, in every served form: dense bf16-layout cache,
@@ -23,11 +23,23 @@ one JSON line:
             one full-width layer on the card == on the CPU, bitwise. The paged
             kernels are held to half an output ulp against the plain version
             at fp32, on a peaked softmax, and that tolerance must reject the
-            plain version with each slot's last row dropped
+            plain version with each slot's last row dropped; flash_attention
+            likewise (plus the rounding of p to the input type), with its
+            last visible key dropped, over causal / non-causal, Sq < Sk, odd
+            lengths, GQA and query offsets, and its rows are bitwise the same
+            alone, in a batch, in a longer prefill and behind an offset; timed
+            at the admission and the capture shape beside one library call
   contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
             prompt admitted alone and in a group of four gives bitwise-equal
-            logits (and what that costs per admission group); paged against
-            dense decode logits (gap reported); int8 gather == int8 ragged
+            logits (and what that costs per admission group); paged == dense
+            on admission and decode logits, bitwise (dense decode runs the
+            paged kernel over a contiguous table), and a prefix hit (its
+            suffix padded to the whole prompt's bucket) == the whole
+            admission, bitwise (read beside it: the suffix at its own bucket,
+            the ms of each, which products see the row count); the dense
+            decode block against the
+            previous plain attention over the whole cache, in 10 alternating
+            pairs; int8 gather == int8 ragged
   serve     qwen3-moe-30b-a3b at full width (depth cut to --layers), bf16,
             random weights from a seed, 16 requests on a Poisson trace (4 of
             them share a 128-token prefix) through the continuous-batching
@@ -35,10 +47,18 @@ one JSON line:
             hits checked) and the paged int8 pool, then int8 expert tables;
             merged (M = N/2 on the suffix) in bf16 and in int8. Teacher-forced
             top-1 agreement of each form with the dense bf16 engine, at the
-            served batch (the dense engine's own stream must read 1.0; paged
+            served batch (the dense engine's own stream must read 1.0, and so
+            must the paged bf16 pool, whose served tokens equal dense's; paged
             int8 KV must reach 0.95 at the reduced config). Then the same
             trace with decode_block=1 (token equal to decode_block=8) and
             dispatch="ragged" at --variant-layers
+  compress  MergeMoE on qwen3-moe-30b-a3b at full width, depth cut to 4
+            layers (COMPRESS_LAYERS): calibration captured on the card through the
+            model's forward with the config's own capacity dispatch (the
+            flash kernel in every layer), the suffix merged 128 -> 64 in fp64
+            on the host, held-out loss of both models; MergeMoE's in-sample
+            output error on a merged layer at most M-SMoE's; the compressed
+            model served in bf16 and with int8 tables
   witness   (--witness-layers N only) the paged int8 pool's top-1 against the
             bf16 pool at full width and depth N, on the card and on the CPU's
             plain path, same weights and contexts
@@ -73,6 +93,13 @@ KV_BLOCK = 16
 #: teacher-forced top-1 floor of the paged int8 pool against the dense bf16
 #: engine (the reference's own gate, benchmarks/serve_bench.py)
 KV_INT8_TOLERANCE = 0.95
+#: the compress phase: depth cut to 4 layers so that two host solves fit the
+#: run, layers [2, 4) merged 128 -> 64; calibration 2 batches x 4 x 160 =
+#: 1280 tokens (> f = 768, so the least squares are determined); 1 held-out
+#: batch of the same shape; 8 requests of the serve trace on the merged model
+COMPRESS_LAYERS, COMPRESS_SPLIT = 4, 2
+CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ = 2, 4, 160
+EVAL_BATCHES, COMPRESS_REQUESTS = 1, 8
 CSRC = "src/repro_torch/kernels/csrc/"
 TABLE = {
     "gather_swiglu": dict(source=CSRC + "gather_swiglu.cu",
@@ -88,6 +115,8 @@ TABLE = {
     "paged_attention_q": dict(
         source=CSRC + "paged_attention_q.cu",
         replaces="src/repro/kernels/paged_attention.py:152"),
+    "flash_attention": dict(source=CSRC + "flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:77"),
 }
 
 
@@ -250,16 +279,128 @@ def check_sees_dropped_row(name, want_of, lens, dtype, vmax):
           f"{name}: the tolerance cannot tell a dropped last row")
 
 
+#: (B, H, nkv, Sq, Sk, hd, causal, qoff) as the reference's flash case list
+#: (tests/test_kernels.py) at reduced widths, plus GQA, odd lengths, Sq < Sk
+#: and Sq > Sk causal (rows that see no key), query offsets (the
+#: prefix-sharing admission) and the model's head width
+FLASH_CASES = {
+    "mha-32": (1, 1, 1, 32, 32, 8, True, None),
+    "gqa-64": (2, 4, 2, 64, 64, 16, True, None),
+    "noncausal-128": (1, 2, 2, 128, 128, 32, False, None),
+    "odd-97": (2, 2, 1, 97, 97, 16, True, None),
+    "rect-causal": (1, 4, 2, 24, 100, 64, True, None),
+    "rect-cross": (1, 2, 2, 32, 64, 16, False, None),
+    "no-key-rows": (1, 2, 1, 70, 40, 16, True, None),
+    "query-offsets": (2, 4, 2, 40, 160, 32, True, (0, 77)),
+    "hd128-odd": (1, 8, 1, 130, 130, 128, True, None),
+}
+
+
+def flash_tol_for(dtype, want: torch.Tensor, vmax: float):
+    """flash_attention against its plain version run on the same inputs
+    widened to fp32 (exactly). The kernel keeps logits, softmax and
+    accumulator in fp32 but, as the TPU kernel does, rounds p to the input
+    type before the value product: each p moves by at most 2^-8 of itself in
+    bf16, the output by at most 2^-8 max|v|. Then the output's one rounding,
+    half an ulp: 2^-8 of |y|."""
+    scale = max(float(want.float().abs().max()), 1e-6) if want.numel() else 1.0
+    if dtype == torch.float32:
+        return (1e-4, 1e-5 * vmax + 2e-5 * scale,
+                "rtol 1e-4, atol 1e-5*max|v| + 2e-5*max|y| (fp32 sum order)")
+    return (2.0 ** -8 + 1e-4, (2.0 ** -8 + 1e-5) * vmax + 2e-5 * scale,
+            "vs the plain version at fp32: rtol 2^-8 (the output's rounding "
+            "to bf16) + 1e-4, atol 2^-8*max|v| (p rounded to bf16 before the "
+            "value product) + 1e-5*max|v| + 2e-5*max|y| (fp32 sum order)")
+
+
+def flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev):
+    """q [B, H, Sq, hd] at 8x the scale of k [B, nkv, Sk, hd] (peaked
+    softmax, as paged_inputs), v like k."""
+    q = (torch.randn((B, H, Sq, hd), generator=gen, device=dev) * 4.0).to(dtype)
+    k = (torch.randn((B, nkv, Sk, hd), generator=gen, device=dev)
+         * 0.5).to(dtype)
+    v = (torch.randn((B, nkv, Sk, hd), generator=gen, device=dev)
+         * 0.5).to(dtype)
+    return q, k, v
+
+
+def flash_plain32(q, k, v, causal, qoff=None, drop: int = 0):
+    """The plain version on the inputs widened to fp32 (exact), GQA
+    expanded. With query offsets, batch row b over its first ``qoff[b] +
+    Sq`` keys (the plain version's bottom-right alignment then puts query
+    row i at key position ``qoff[b] + i``). ``drop``: that many of each
+    row's last visible keys left out, the fault the tolerance must see."""
+    from repro_torch.kernels import ops
+    plain = ops.KERNELS["flash_attention"].plain
+    n_rep = q.shape[1] // k.shape[1]
+    q32 = q.float()
+    k32 = k.float().repeat_interleave(n_rep, dim=1)
+    v32 = v.float().repeat_interleave(n_rep, dim=1)
+    Sq, Sk = q.shape[2], k.shape[2]
+    if qoff is None:
+        return plain(q32, k32[:, :, :Sk - drop], v32[:, :, :Sk - drop],
+                     causal=causal)
+    return torch.cat([plain(q32[b:b + 1], k32[b:b + 1, :, :o + Sq - drop],
+                            v32[b:b + 1, :, :o + Sq - drop], causal=True)
+                      for b, o in enumerate(qoff.tolist())])
+
+
+def check_flash(name, got, q, k, v, causal, dtype, qoff=None):
+    """The kernel's output against the fp32 plain version, and the
+    tolerance's power to see a dropped key. Returns the max abs error."""
+    want = flash_plain32(q, k, v, causal, qoff)
+    vmax = float(v.float().abs().max())
+    tol = flash_tol_for(dtype, want, vmax)
+    err, _ = compare(name, got, want, dtype, tol)
+    off = flash_plain32(q, k, v, causal, qoff, drop=1)
+    torch.cuda.synchronize()
+    check(not bool(torch.allclose(off.float(), want.float(), rtol=tol[0],
+                                  atol=tol[1])),
+          f"{name}: the tolerance cannot tell a dropped last key")
+    return err, tol[2]
+
+
+def flash_invariance(gen, dev, dtype) -> dict:
+    """A query row's result depends only on its position and the keys it
+    sees: rows of one prefill are bitwise the same alone in the batch, in a
+    shorter prefill of the same prompt, and computed behind a query offset
+    over a longer key buffer whose rows past the last visible key hold NaN
+    (the prefix-sharing admission)."""
+    from repro_torch.kernels import flash_attention as FA
+    B, H, nkv, S, hd, cut = 3, 4, 2, 150, 64, 70
+    q, k, v = flash_inputs(gen, B, H, nkv, S, S, hd, dtype, dev)
+    full = FA.attend(q, k, v, True)
+    alone = FA.attend(q[1:2], k[1:2], v[1:2], True)
+    shorter = FA.attend(q[:, :, :cut], k[:, :, :cut], v[:, :, :cut], True)
+    pad = torch.full((B, nkv, 50, hd), float("nan"), dtype=dtype, device=dev)
+    kb, vb = torch.cat([k, pad], dim=2), torch.cat([v, pad], dim=2)
+    behind = FA.attend(q[:, :, cut:], kb, vb, True,
+                       qoff=torch.full((B,), cut, dtype=torch.int32,
+                                       device=dev))
+    strided = FA.attend(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                        True)
+    torch.cuda.synchronize()
+    out = dict(alone_in_batch=bool(torch.equal(alone[0], full[1])),
+               shorter_prefill=bool(torch.equal(shorter, full[:, :, :cut])),
+               behind_query_offset=bool(torch.equal(behind, full[:, :, cut:])),
+               strided_layout=bool(torch.equal(strided, full)))
+    check(all(out.values()), f"flash_attention is not batch / position "
+                             f"invariant ({dtype_key(dtype)}): {out}")
+    return out
+
+
 def case_list(dev):
-    """The case lists of tests/test_torch_kernels.py, test_torch_kernels_q.py
-    and test_torch_paged_attention.py at their reduced shapes, for all six
-    kernels."""
+    """The case lists of tests/test_torch_kernels.py, test_torch_kernels_q.py,
+    test_torch_paged_attention.py and test_torch_flash.py at their reduced
+    shapes, for all seven kernels."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import decode_moe, grouped_mlp, ops
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(42)
     n = 0
     worst = {}
+    invariance = {}
 
     def note(name, err):
         nonlocal n
@@ -364,7 +505,23 @@ def case_list(dev):
                          attn_tol_for(dtype, dense, float(vc.float().abs().max())))
         note("paged_attention", err)
         n += 2
-    return n, worst
+        for name, (B, H, nkv, Sq, Sk, hd, causal, off) in FLASH_CASES.items():
+            q, k, v = flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev)
+            qoff = (None if off is None else
+                    torch.tensor(off, dtype=torch.int32, device=dev))
+            got = FA.attend(q, k, v, causal, qoff=qoff)
+            err, _ = check_flash(f"flash_attention[{name},{key}]", got, q, k,
+                                 v, causal, dtype, qoff)
+            note("flash_attention", err)
+            if H == nkv and qoff is None:
+                # the reference's signature (ops, expanded heads) == attend
+                via_ops = ops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(bool(torch.equal(via_ops, got)),
+                      f"ops.flash_attention[{name},{key}] != attend")
+        invariance[key] = flash_invariance(gen, dev, dtype)
+        n += 1
+    return n, worst, invariance
 
 
 def time_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -601,6 +758,74 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
     return checks, entries, quant_bitwise
 
 
+def flash_bound_ms(B, H, nkv, Sq, Sk, hd, dtype, causal=True):
+    """Least time for one full-sequence attention: q, k, v read once and the
+    output written once, against the operations these shapes need (2*hd for
+    q.k and 2*hd for p.v per visible (query, key) pair) at the peak rate of
+    the inputs' type."""
+    es = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (2 * B * H * Sq * hd + 2 * B * nkv * Sk * hd) * es / HBM_BYTES_PER_S
+    if causal:
+        pairs = sum(max(0, min(Sk, i + Sk - Sq + 1)) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    t_ops = 4 * hd * B * H * pairs / PEAK_FLOPS[dtype]
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by
+
+
+def library_attention_ms(q, k, v) -> float:
+    """One library call that computes the same causal attention (expanded
+    heads, contiguous), timed only as a yardstick: the port never calls it."""
+    import torch.nn.functional as F
+    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True),
+                   reps=20)
+
+
+def flash_main_shapes(dev, cfg, shapes):
+    """flash_attention at the main path's shapes (``shapes``: (label, B, S)),
+    bf16, in the model's layout: q ``[B, S, H, hd]`` and the unexpanded K/V
+    ``[B, S, nkv, hd]`` read through their strides, as ``layers._attend``
+    hands them over. Checked against the fp32 plain version, timed against
+    its bound, the plain version and one library call."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(11)
+    H, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dtype = torch.bfloat16
+    recs = []
+    for label, B, S in shapes:
+        qm = (torch.randn((B, S, H, hd), generator=gen, device=dev)
+              * 4.0).to(dtype)
+        km = (torch.randn((B, S, nkv, hd), generator=gen, device=dev)
+              * 0.5).to(dtype)
+        vm = (torch.randn((B, S, nkv, hd), generator=gen, device=dev)
+              * 0.5).to(dtype)
+        q, k, v = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
+
+        def fn():
+            return FA.attend(q, k, v, True)
+        err, words = check_flash(f"flash_attention[{label}]", fn(), q, k, v,
+                                 True, dtype)
+        qc = q.contiguous()
+        kx = k.repeat_interleave(H // nkv, dim=1).contiguous()
+        vx = v.repeat_interleave(H // nkv, dim=1).contiguous()
+        plain = ops.KERNELS["flash_attention"].plain
+        b_ms, by = flash_bound_ms(B, H, nkv, S, S, hd, dtype)
+        recs.append(dict(
+            name="flash_attention", label=label,
+            shape=f"B={B} H={H} nkv={nkv} S={S} hd={hd} causal bf16, model "
+                  f"layout", max_err=err, tol=words,
+            ms=time_ms(fn, reps=20), bound_ms=b_ms, bound_by=by,
+            plain_ms=time_ms(lambda: plain(qc, kx, vx, causal=True), reps=3,
+                             rounds=3),
+            library_ms=library_attention_ms(qc, kx, vx),
+            library="torch.nn.functional.scaled_dot_product_attention("
+                    "is_causal=True), expanded heads"))
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # the trace and the engine
 # ---------------------------------------------------------------------------
@@ -715,18 +940,21 @@ def check_launches(res, n_layers: int, dispatch: str = "gather",
     """Every kernel's launches in one serve: the gather kernel of the expert
     form once per decode step and MoE layer; the grouped kernel of the form
     once per ADMITTED ROW and MoE layer (each row is prefilled alone), plus
-    every decode step under ragged; the paged kernel of the pool's type once
-    per decode step and layer; every other kernel never."""
+    every decode step under ragged; the flash kernel once per admitted row
+    and layer (the admission's full-sequence attention, dense and paged); the
+    paged kernel of the pool's type once per decode step and layer, where the
+    dense cache's decode runs the bf16 one over a contiguous table; every
+    other kernel never."""
     steps = res["n_blocks"] * res["steps_per_block"]
     rows = sum(shape[0] for shape in res["admits"])
     sfx = "_q" if experts == "int8" else ""
     used = {"grouped_swiglu" + sfx: rows * n_layers + (
-        steps * n_layers if dispatch == "ragged" else 0)}
+        steps * n_layers if dispatch == "ragged" else 0),
+            "flash_attention": rows * n_layers}
     if dispatch == "gather":
         used["gather_swiglu" + sfx] = steps * n_layers
-    if kv != "dense":
-        used["paged_attention_q" if kv == "int8" else "paged_attention"] = \
-            steps * n_layers
+    used["paged_attention_q" if kv == "int8" else "paged_attention"] = \
+        steps * n_layers
     want = {name: used.get(name, 0) for name in TABLE}
     check(res["launches"] == want,
           f"launches {res['launches']} != expected {want}")
@@ -1012,13 +1240,177 @@ def host_ms(fn, rounds: int = 3) -> float:
     return statistics.median(out)
 
 
-def contracts(cfg, model, device):
+def alternating_ms(fns: dict, pairs: int) -> dict:
+    """Host wall ms of each of two calls ending in a synchronize, run in
+    ``pairs`` pairs whose order alternates (a b, b a, ...): the medians, the
+    per-pair ratios second / first name, and every reading."""
+    (na, fa), (nb, fb) = fns.items()
+    ms = {na: [], nb: []}
+    for i in range(pairs):
+        for name, fn in ((na, fa), (nb, fb))[::1 if i % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    ratios = [b / a for a, b in zip(ms[na], ms[nb])]
+    return dict(pairs=pairs, median_ms={n: statistics.median(v)
+                                        for n, v in ms.items()},
+                ratio_median=statistics.median(ratios),
+                ratio_range=[min(ratios), max(ratios)], ms=ms)
+
+
+def prefix_hit(cfg, model, device) -> dict:
+    """ROADMAP C3 on a prefix hit, under the engine's dispatch (``cfg``;
+    capacity dispatch would make the row count change which tokens are
+    dropped), at a shape of the serve trace: a 144-token prompt admitted
+    whole (bucket 256) into slot 0 of a paged pool, then into slot 1, which
+    adopts slot 0's first 128 rows and forwards its 16-row suffix padded to
+    the whole prompt's bucket, as the engine does: the logits must be
+    bitwise equal. Read beside it: the suffix at its own bucket (64, the
+    reference's padding), the ms per admission of each in alternating pairs,
+    and which products of layer 0 give a row other bits at 64 or 128 rows
+    than among 256."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+    from repro_torch.models.numerics import ein, ein32
+    gen = torch.Generator(device=device).manual_seed(11)
+    S, shared, s_max, whole_bucket, own_bucket = 144, 128, 512, 256, 64
+    i32 = dict(dtype=torch.int32, device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (1, whole_bucket),
+                           generator=gen, device=device)
+    prompt[:, S:] = 0
+    mb = s_max // KV_BLOCK
+    cache = MD.init_paged_cache(cfg, 2, s_max, device, n_blocks=2 * mb,
+                                block_size=KV_BLOCK)
+    tab = torch.arange(2 * mb, **i32).reshape(2, mb)
+    tab[1, :shared // KV_BLOCK] = tab[0, :shared // KV_BLOCK]
+    cache["tab"][:2] = tab
+    admit = ST.make_slot_admit_paged(cfg)
+    whole, _, _ = admit(model, cache, prompt, torch.tensor([S], **i32),
+                        np.array([0], np.int32), torch.zeros((1,), **i32))
+
+    def hit(bucket):
+        toks = torch.zeros((1, bucket), dtype=prompt.dtype, device=device)
+        toks[0, :S - shared] = prompt[0, shared:S]
+        return lambda: admit(model, cache, toks,
+                             torch.tensor([S - shared], **i32),
+                             np.array([1], np.int32),
+                             torch.tensor([shared], **i32))[0]
+
+    padded, own = hit(whole_bucket), hit(own_bucket)
+    lp, lo = padded(), own()
+    check(bool(torch.equal(lp, whole)),
+          f"contracts: a prefix hit padded to the whole prompt's bucket "
+          f"differs from the whole admission, max gap "
+          f"{float((lp - whole).abs().max())} (C3)")
+    timing = alternating_ms({"whole_prompt_bucket": padded,
+                             "own_bucket": own}, pairs=5)
+    blk = model.stack[0]
+    x = L.rmsnorm(blk.ln1, L.embed_apply(model.embed, prompt), cfg.norm_eps)
+    heads = torch.randn((1, whole_bucket, cfg.n_heads * cfg.hd),
+                        generator=gen, device=device).to(x.dtype)
+    products = {"wq": (ein, x, blk.attn.wq), "wk": (ein, x, blk.attn.wk),
+                "wv": (ein, x, blk.attn.wv), "wo": (ein, heads, blk.attn.wo),
+                "router (fp32)": (ein32, x, blk.moe.router)}
+    rows_alike = {}
+    for m in (64, 128):
+        rows_alike[f"{m}_vs_{whole_bucket}"] = {
+            name: bool(torch.equal(fn("bsd,dh->bsh", a, w)[:, :m],
+                                   fn("bsd,dh->bsh", a[:, :m].contiguous(),
+                                      w)))
+            for name, (fn, a, w) in products.items()}
+    del cache
+    free()
+    return dict(prompt=S, shared_rows=shared,
+                whole_prompt_bucket_logits_bitwise=True,
+                own_bucket_logits_bitwise=bool(torch.equal(lo, whole)),
+                own_bucket_logits_max_abs_gap=float((lo - whole).abs().max()),
+                ms_per_admission=timing, products_rows_bitwise=rows_alike)
+
+
+def previous_attn_decode_slots(cfg, p, x, cache_k, cache_v, pos, *,
+                               inv_freq, view=None):
+    """The dense decode attention the port ran before the cache was decoded
+    through the paged kernel: the plain ``_sdpa`` over every row of the
+    cache. A yardstick for ``dense_decode_ab`` only (the cache must hold
+    exactly ``s_max`` rows); nothing else calls it."""
+    from repro_torch.models import layers as L
+    B, S_max = x.shape[0], cache_k.shape[1]
+    q, k, v = L._qkv(cfg, p, x)
+    positions = pos[:, None]
+    if inv_freq is not None:
+        q = L.apply_rope(q, positions, inv_freq)
+        k = L.apply_rope(k, positions, inv_freq)
+    b_iota = torch.arange(B, device=x.device)
+    in_range = (pos < S_max)[:, None, None]
+    row = pos.clamp(max=S_max - 1).to(torch.long)
+    cache_k[b_iota, row] = torch.where(in_range, k[:, 0].to(cache_k.dtype),
+                                       cache_k[b_iota, row])
+    cache_v[b_iota, row] = torch.where(in_range, v[:, 0].to(cache_v.dtype),
+                                       cache_v[b_iota, row])
+    valid = (torch.arange(S_max, device=x.device)[None, :]
+             <= pos[:, None])[:, None, None, :]
+    out = L._sdpa(q, cache_k, cache_v, valid, cfg.n_heads // cfg.n_kv_heads)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
+    return L.ein("bsh,hd->bsd", out, p.wo).to(x.dtype), cache_k, cache_v
+
+
+def dense_decode_ab(cfg, model, device, lens, pairs: int = 10) -> dict:
+    """One decode block (8 steps, 8 busy slots at ``lens`` rows, the
+    engine's fused step) of the dense cache, its attention through the
+    paged kernel over the contiguous table (the port) against the previous
+    plain ``_sdpa`` over the whole cache, in alternating pairs in this
+    process: everything but the attention is the same code and state."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+    B, s_max = lens.shape[0], 512
+    gcfg = with_dispatch(cfg, "gather", B)
+    cache = MD.init_slot_cache(gcfg, B, s_max, device, block_size=KV_BLOCK)
+    check(cache["k"].shape[2] == s_max, "the yardstick needs rows == s_max")
+    gen = torch.Generator(device=device).manual_seed(13)
+    for t in (cache["k"], cache["v"]):
+        t.normal_(generator=gen)
+    pos0 = lens.to(device, cache["pos"].dtype)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
+    act = torch.ones((B,), dtype=torch.bool, device=device)
+    rem = torch.full((B,), 100, dtype=torch.int32, device=device)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=device)
+    block = ST.make_slot_decode_multi(gcfg, 8)
+    port = L.attn_decode_slots
+
+    def run(attn):
+        def fn():
+            L.attn_decode_slots = attn
+            try:
+                cache["pos"] = pos0.clone()
+                block(model, cache, tok, act, rem, eos)
+            finally:
+                L.attn_decode_slots = port
+        return fn
+
+    fns = {"previous_sdpa": run(previous_attn_decode_slots),
+           "paged_kernel": run(port)}
+    for fn in fns.values():                                 # warm up
+        fn()
+    out = alternating_ms(fns, pairs)
+    del cache
+    free()
+    return dict(layers=cfg.n_layers, slots=B, steps=8, **out)
+
+
+def contracts(cfg, model, device, lens):
     """On one cache state: logits of a decode step under gather and under
     ragged dispatch, and of K fused steps against the same K steps driven one
     at a time, compared with torch.equal; a prompt's admission logits alone
     and in a group of four (bitwise, and the time per group of the
     batch-invariant admission against the batched prefill it replaced); the
-    paged pool's decode logits against the dense cache's."""
+    paged pool's admission and decode logits against the dense cache's,
+    bitwise, and a prefix hit's admission against the whole prompt's
+    (ROADMAP C3); the dense decode block against the previous plain
+    attention, timed in alternating pairs."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as MD
     gen = torch.Generator(device=device).manual_seed(3)
@@ -1101,11 +1493,19 @@ def contracts(cfg, model, device):
     check(bool((block[:, :, 2] == 1).all()), "contracts: finite lane")
     check(fused_step, "contracts: fused K steps != K single steps on logits")
 
-    # ---- the paged pool against the dense cache: admission, one decode step
+    # ---- C3: the paged pool against the dense cache, admission and one
+    # decode step: one kernel over the same rows in the same blocks
     la_d, _ = admitted_cache(gcfg, model, toks, lengths, device)
     la_p, pc = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
     lp, _ = MD.decode_step_slots(gcfg, model, pc, tok, act)
     torch.cuda.synchronize()
+    check(bool(torch.equal(la_p, la_d)),
+          "contracts: paged admission logits != dense, bitwise")
+    check(bool(torch.equal(lp, lg)),
+          f"contracts: paged decode logits != dense, bitwise (max gap "
+          f"{float((lp - lg).abs().max())})")
+    hit = prefix_hit(gcfg, model, device)
+    decode_ab = dense_decode_ab(cfg, model, device, lens)
     return dict(gather_vs_ragged_logits_bitwise=gather_ragged,
                 fused_vs_stepwise_logits_bitwise=fused_step,
                 prefill_alone_vs_in_batch_logits_bitwise=admit_invariant,
@@ -1118,7 +1518,9 @@ def contracts(cfg, model, device):
                     decode_logits_max_abs_gap=float((lp - lg).abs().max()),
                     decode_logits_bitwise=bool(torch.equal(lp, lg)),
                     decode_argmax_equal_share=float(
-                        (lp.argmax(-1) == lg.argmax(-1)).float().mean())))
+                        (lp.argmax(-1) == lg.argmax(-1)).float().mean())),
+                prefix_hit_vs_whole_prompt=hit,
+                dense_decode_block_ms=decode_ab)
 
 
 def contracts_int8(cfg, model, device):
@@ -1199,6 +1601,167 @@ def rehearse(args, full_cfg, device):
     return dense, largest[1] * full_cfg.moe.top_k
 
 
+# ---------------------------------------------------------------------------
+# MergeMoE compression at full width
+# ---------------------------------------------------------------------------
+
+def host_rss_gb() -> float:
+    """Peak resident memory of this process on the host so far."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def in_sample_errors(model, nmodel, stream, layer: int, device) -> dict:
+    """MergeMoE against M-SMoE on the first merged layer's card-captured
+    calibration inputs, both clustered by weights (tests/test_system.py of
+    the reference). MergeMoE's tables and clusters are the compressed
+    model's own (its first suffix layer, as served); M-SMoE's are solved
+    here on the host and rounded to the same type the same way (fp64, fp32,
+    model type). Then the sum over clusters of ||merged expert(X) - sum_j
+    w_j expert_j(X)||_F in fp64 on the card. MergeMoE's down projection is
+    the least-squares optimum of exactly that (the two share the averaged
+    gate and up tables), so up to the tables' rounding its error cannot
+    exceed M-SMoE's."""
+    import torch.nn.functional as F
+    from repro_torch.core import clustering as CL
+    from repro_torch.core import merge as MG
+    orig, merged = model.stack[layer].moe, nmodel.stack_c[0].moe
+    M = int(merged.live)
+    tabs = [t.detach().float().cpu().numpy() for t in (orig.wg, orig.wu, orig.wd)]
+    calib = stream.layer(layer)
+    t0 = time.perf_counter()
+    ms = MG.merge_layer("msmoe", *tabs, calib.counts, calib.x, M)
+    t_solve = time.perf_counter() - t0
+    assign = merged.remap.cpu().numpy()
+    X = torch.from_numpy(calib.x).to(device, torch.float64)
+    W = [torch.from_numpy(a).to(device, torch.float64) for a in tabs]
+
+    def as_served(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device, merged.wg.dtype)
+
+    runs = {"mergemoe": (assign, [t[:M] for t in (merged.wg, merged.wu,
+                                                  merged.wd)]),
+            "msmoe": (ms.assign, [as_served(t) for t in (ms.wg, ms.wu,
+                                                         ms.wd)])}
+
+    def expert(g, u, d):
+        return (F.silu(X @ g) * (X @ u)) @ d
+
+    err = {}
+    for m, (a, tables) in runs.items():
+        w = CL.merge_weights(a, calib.counts, M)
+        total = 0.0
+        for c in range(M):
+            members = np.where(a == c)[0]
+            Z = sum(float(w[j]) * expert(W[0][j], W[1][j], W[2][j])
+                    for j in members)
+            Y = expert(*(t[c].to(torch.float64) for t in tables))
+            total += float(torch.linalg.norm(Y - Z))
+        err[m] = total
+    del X, W
+    free()
+    check(err["mergemoe"] <= err["msmoe"],
+          f"MergeMoE's in-sample error {err['mergemoe']} exceeds M-SMoE's "
+          f"{err['msmoe']} on layer {layer}")
+    return dict(layer=layer, tokens=int(calib.x.shape[0]),
+                tables=str(merged.wg.dtype).replace("torch.", ""),
+                in_sample_error=err,
+                mergemoe_over_msmoe=err["mergemoe"] / err["msmoe"],
+                same_clusters=bool(np.array_equal(assign, ms.assign)),
+                msmoe_host_solve_s=t_solve)
+
+
+def compress_phase(args, full_cfg, device, card, trace):
+    """The compression entry point at full width: calibration captured on
+    the card (``CalibrationStream`` over the model's forward with the
+    config's own capacity dispatch, the flash kernel in every layer), the
+    suffix merged 128 -> 64 by ``launch.compress.run`` (fp64 host solves),
+    held-out loss of both models; the in-sample check on the first merged
+    layer; the compressed model served in bf16 and with int8 tables.
+    Returns the launches of the compression run and of the two serves."""
+    from repro_torch.core import calibration as CAL
+    from repro_torch.kernels import ops
+    from repro_torch.launch import compress as LC
+    cfg = full_cfg.replace(n_layers=COMPRESS_LAYERS)
+    split = COMPRESS_SPLIT
+    M = full_cfg.moe.n_experts // 2
+    check(cfg.moe.dispatch == "dense",
+          "the compression phase calibrates with the config's own dispatch")
+    model, build_s = build_model(cfg, device, args.seed)
+    calib = LC.make_batches(cfg, CALIB_BATCHES, device, CALIB_BATCH,
+                            CALIB_SEQ, args.seed + 100)
+    check(CALIB_BATCHES * CALIB_BATCH * CALIB_SEQ > full_cfg.moe.d_ff_expert,
+          "the least squares need more calibration tokens than f")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()            # just before the main path
+    t0 = time.perf_counter()
+    stream = CAL.CalibrationStream(cfg, model).consume(calib)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ncfg, nmodel, report = LC.run(
+        cfg=cfg, model=model, merged_experts=M, split=split,
+        eval_batches=EVAL_BATCHES, batch=CALIB_BATCH, seq=CALIB_SEQ,
+        seed=args.seed, stream=stream, device=device)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = ops.launch_counts()       # just after
+    n_forwards = CALIB_BATCHES + 2 * EVAL_BATCHES
+    want = {name: 0 for name in TABLE}
+    want["flash_attention"] = n_forwards * cfg.n_layers
+    check(launches == want, f"compression launches {launches} != {want} "
+                            f"(one flash launch per layer and forward)")
+    check(all(np.isfinite(report[k]) for k in ("loss_full",
+                                               "loss_compressed")),
+          f"non-finite loss: {report}")
+    check(ncfg.moe_merged == M and ncfg.moe_split == split
+          and len(nmodel.stack_c) == cfg.n_layers - split,
+          "the compressed model's layout")
+    check(all(int(b.moe.remap.max()) < M for b in nmodel.stack_c),
+          "a remap entry past the merged tables")
+    insample = in_sample_errors(model, nmodel, stream, split, device)
+    rss = host_rss_gb()
+    del model, stream
+    free()
+    # the compressed model served: bf16, then int8 tables
+    served = {}
+    weights = weights_gb(nmodel)
+    for form in ("bf16", "int8"):
+        if form == "int8":
+            q_s = quantize(nmodel)
+        serve(ncfg, nmodel, trace[:2], device)
+        res = serve(ncfg, nmodel, trace[:COMPRESS_REQUESTS], device)
+        check_launches(res, ncfg.n_layers, experts=form)
+        served[form] = dict(weights_gb=weights if form == "bf16"
+                            else weights_gb(nmodel),
+                            quantize_s=q_s if form == "int8" else None,
+                            **serve_summary(res, card))
+    del nmodel
+    free()
+    emit("compress", card=card, model=cfg.name, layers=cfg.n_layers,
+         merged_layers=report["layers_merged"], n_experts=report["n_experts"],
+         merged_experts=M, calib_tokens=report["calib_tokens"],
+         calib_shape=[CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ],
+         seconds=dict(build=build_s, capture=t_capture,
+                      solve=report["t_merge_s"],
+                      compress_total=report["t_total_s"],
+                      eval_full=report["t_eval_base_s"],
+                      eval_compressed=report["t_eval_compressed_s"],
+                      run=t_run, total=t_capture + t_run),
+         loss_full=report["loss_full"],
+         loss_compressed=report["loss_compressed"],
+         bytes_original=report["bytes_original"],
+         bytes_compressed=report["bytes_compressed"],
+         compression_ratio=report["compression_ratio"],
+         peak_host_rss_gb=rss, launches=launches, in_sample=insample,
+         served=served)
+    total = dict(launches)
+    for res in served.values():
+        for name, n in res["launches"].items():
+            total[name] += n
+    return total
+
+
 def decode_lens(trace) -> torch.Tensor:
     """Valid rows of 8 busy slots half-way through their 32 new tokens."""
     return torch.tensor([len(r["prompt"]) + 16 for r in trace[:8]],
@@ -1259,11 +1822,18 @@ def main(argv=None) -> int:
     # ---- kernels
     t0 = time.perf_counter()
     trace = make_trace(full_cfg.vocab_size, args.seed)
-    n_cases, worst = case_list(device)
+    n_cases, worst, invariance = case_list(device)
     checks, entries, quant_bitwise = main_path_shapes(
         device, full_cfg, admission_rows, decode_lens(trace))
+    flash = flash_main_shapes(
+        device, full_cfg,
+        [("admission", 1, admission_rows // full_cfg.moe.top_k),
+         ("capture", CALIB_BATCH, CALIB_SEQ)])
+    checks.extend(flash)
+    entries["flash_attention"] = flash[0]
     emit("kernels", cases_passed=n_cases, worst_abs_err_case_list=worst,
-         quantize_card_equals_cpu_bitwise=quant_bitwise, card=card,
+         quantize_card_equals_cpu_bitwise=quant_bitwise,
+         flash_attention_rows_invariant_bitwise=invariance, card=card,
          checks=checks)
     t_kernels = time.perf_counter() - t0
 
@@ -1272,7 +1842,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cfg = full_cfg.replace(n_layers=args.layers)
     model, build_s = build_model(cfg, device, args.seed)
-    emit("contracts", layers=cfg.n_layers, **contracts(cfg, model, device))
+    emit("contracts", layers=cfg.n_layers,
+         **contracts(cfg, model, device, decode_lens(trace)))
     total_launches = {name: 0 for name in TABLE}
 
     def record(res, form, mcfg, n_weights, experts="bf16", kv="dense", **extra):
@@ -1303,6 +1874,16 @@ def main(argv=None) -> int:
               f"{form}: no prefix hit on the shared-prefix trace")
         pred[form] = teacher_forced(cfg, model, trace, dense["tokens"], device,
                                     kv=kv)
+        if kv == "bf16":
+            # C3: dense decode runs the paged kernel over a contiguous
+            # table and a prefix hit pads its suffix to the whole prompt's
+            # bucket, so the two layouts are one computation
+            check(res["tokens"] == dense["tokens"],
+                  f"paged bf16 KV: tokens differ from the dense cache's on "
+                  f"the shared-prefix trace ({top1(res['tokens'], dense['tokens'])}"
+                  f" agree)")
+            check(top1(pred[form], dense["tokens"]) == 1.0,
+                  "paged bf16 KV: teacher-forced top-1 against dense != 1.0")
         record(res, form, cfg, bf16_gb, kv=kv,
                free_running_agreement_with_dense=top1(res["tokens"],
                                                       dense["tokens"]),
@@ -1357,6 +1938,12 @@ def main(argv=None) -> int:
          full_width=dict(layers=cfg.n_layers,
                          teacher_forced_top1_vs_dense=full_width))
     t_serve = time.perf_counter() - t0
+
+    # ---- compression: MergeMoE at full width, then the merged model served
+    t0 = time.perf_counter()
+    for name, n in compress_phase(args, full_cfg, device, card, trace).items():
+        total_launches[name] += n
+    t_compress = time.perf_counter() - t0
 
     # ---- variants at a small depth: decode_block=1 and dispatch="ragged"
     t0 = time.perf_counter()
@@ -1417,12 +2004,13 @@ def main(argv=None) -> int:
             replaces=meta["replaces"], launches=total_launches[name],
             max_abs_err=rec["max_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=None, shape=rec["shape"]))
+            library_ms=rec.get("library_ms"), shape=rec["shape"]))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
         rehearse=t_rehearse, kernels=t_kernels, serve=t_serve,
-        variants=t_variants, total=time.perf_counter() - t_start)}), flush=True)
+        compress=t_compress, variants=t_variants,
+        total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

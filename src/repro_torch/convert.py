@@ -2,8 +2,11 @@
 
 ``from_reference_params(tree, cfg, device, dtype)`` takes the reference's
 parameters as NESTED DICTS OF NUMPY ARRAYS (fp32 copies of the leaves are
-exact for bf16 sources: bf16 -> fp32 -> bf16 round-trips) and returns a
-:class:`repro_torch.models.model.Model` holding them. The reference stacks a
+exact for bf16 sources: bf16 -> fp32 -> bf16 round-trips) or of torch tensors
+and returns a :class:`repro_torch.models.model.Model` holding them.
+``unstacked_tree(model)`` and ``stack_tree(blocks)`` are the way back: the
+model's tensors in the reference's tree layout (the compression pipeline
+assembles a merged model as such a tree). The reference stacks a
 layer stack's leaves along a leading ``[L, ...]`` axis; the port keeps one
 module per layer, so every stacked leaf is sliced along axis 0. Leaf names
 inside a layer are the reference's (``attn.wq wk wv wo``, ``moe.router wg wu
@@ -18,7 +21,7 @@ staying int8 and the scales fp32.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -29,15 +32,50 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix="") -> Dict[str, Any]:
     out = {}
     for key, val in tree.items():
         name = f"{prefix}.{key}" if prefix else str(key)
         if isinstance(val, dict):
             out.update(_flatten(val, name))
         else:
-            out[name] = np.asarray(val)
+            out[name] = val if isinstance(val, torch.Tensor) else np.asarray(val)
     return out
+
+
+def _nest(flat: Dict[str, Any]) -> dict:
+    tree: dict = {}
+    for name, val in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return tree
+
+
+def stack_tree(blocks, skip=()) -> dict:
+    """A sequence of blocks as one reference-layout stack: nested dicts under
+    the reference's leaf names, each leaf the blocks' tensors stacked along a
+    leading ``[L, ...]`` axis (a copy, on their device). ``skip``: leaf
+    names (``"moe.wg"``) left out."""
+    per_layer: Dict[str, list] = {}
+    for block in blocks:
+        named = dict(block.named_parameters())
+        named.update(dict(block.named_buffers()))
+        for name, t in named.items():
+            if name not in skip:
+                per_layer.setdefault(name, []).append(t)
+    return _nest({name: torch.stack(ts) for name, ts in per_layer.items()})
+
+
+def unstacked_tree(model: Model) -> dict:
+    """The model's leaves outside its layer stacks (embedding, final norm)
+    under the reference's names, the model's own tensors. With
+    :func:`stack_tree` for each stack it makes the tree
+    :func:`from_reference_params` takes."""
+    return _nest({name: t for name, t in _targets(model).items()
+                  if name.split(".")[0] not in ("stack", "stack_c")})
 
 
 def _targets(model: Model) -> Dict[str, torch.Tensor]:
@@ -106,8 +144,9 @@ def from_reference_params(tree: dict, cfg: ModelConfig, device,
                 raise ValueError(
                     f"{ref_name}{'' if layer is None else f'[{layer}]'}: shape "
                     f"{tuple(arr.shape)} != expected {tuple(tgt.shape)}")
-            loaded[name] = torch.from_numpy(np.array(arr)).to(
-                device=device, dtype=tgt.dtype)
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.array(arr))
+            loaded[name] = arr.to(device=device, dtype=tgt.dtype)
 
     for name, value in loaded.items():
         mod_path, _, leaf = name.rpartition(".")

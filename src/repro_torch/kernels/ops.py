@@ -2,20 +2,25 @@
 
 A CUDA tensor launches the hand-written kernel or raises; a CPU tensor takes
 the plain PyTorch version (:mod:`repro_torch.kernels.ref`). There is no flag
-and no fallback that reroutes a CUDA tensor to the plain version.
+and no fallback that reroutes a CUDA tensor to the plain version. The model's
+full-sequence attention (``layers._attend``) calls the flash kernel's
+``attend`` itself, on the unexpanded heads: on the CPU it runs the
+reference's model arithmetic (``_sdpa``), which the reference's model runs
+too, rather than the flash oracle.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import decode_moe, grouped_mlp, paged_attention as PA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
 
 #: every hand-written kernel by public name (``_common.Kernel``: ``name``,
 #: ``plain`` and the launch count ``LAUNCHES``)
 KERNELS = {k.name: k for k in (decode_moe.GATHER, grouped_mlp.GROUPED,
                                decode_moe.GATHER_Q, grouped_mlp.GROUPED_Q,
-                               PA.PAGED, PA.PAGED_Q)}
+                               PA.PAGED, PA.PAGED_Q, FA.FLASH)}
 
 
 def gather_swiglu(x: torch.Tensor, wg, wu, wd, idx, w) -> torch.Tensor:
@@ -60,6 +65,15 @@ def paged_attention_q(q: torch.Tensor, kp, vp, ks, vs, tab,
     if q.is_cuda:
         return PA.paged_attention_q(q, kp, vp, ks, vs, tab, lens)
     return ref.paged_attention_q(q, kp, vp, ks, vs, tab, lens)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention. q / k / v: ``[B, H, S, hd]`` (GQA expanded
+    by the caller)."""
+    if q.is_cuda:
+        return FA.flash_attention(q, k, v, causal=causal)
+    return ref.flash_attention(q, k, v, causal=causal)
 
 
 def launch_counts() -> dict:

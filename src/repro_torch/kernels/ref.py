@@ -9,7 +9,10 @@ dequantized to fp32 (``q * scale``) and ``h`` kept fp32: one rounding, at the
 output. Paged attention: the pool gathered through the block table into a
 contiguous view (sentinel entries clipped into range), then the dense path's
 ``_sdpa`` arithmetic with rows past ``lens`` masked; int8 pools dequantized to
-the query's type first. The CPU path of :mod:`repro_torch.kernels.ops` runs
+the query's type first. Flash attention: logits through ``ein`` (rounded to
+the inputs' type) times ``1/sqrt(hd)``, the bottom-right causal mask filled
+with the most negative fp32, softmax cast to v's type, the value product. The
+CPU path of :mod:`repro_torch.kernels.ops` runs
 these; on the card they are only what the hand-written kernels are held
 against.
 """
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant as Q
 from repro_torch.models.layers import _sdpa
+from repro_torch.models.numerics import ein
 
 F32 = torch.float32
 
@@ -194,3 +198,27 @@ def paged_attention_q(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     kc = Q.dequantize_kv(_gather_pool(kp, tab), _gather_pool(ks, tab), q.dtype)
     vc = Q.dequantize_kv(_gather_pool(vp, tab), _gather_pool(vs, tab), q.dtype)
     return _paged_sdpa(q, kc, vc, lens)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale=None) -> torch.Tensor:
+    """Attention oracle. q / k / v: ``[B, H, S, hd]`` (same H: GQA is
+    expanded by the caller). Causal rows are aligned bottom-right: query row
+    i sees the keys up to ``i + Sk - Sq``; a row that sees none gets the
+    softmax of equal logits (every key weighed alike)."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    logits = ein("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        S_q, S_k = q.shape[2], k.shape[2]
+        mask = torch.tril(torch.ones((S_q, S_k), dtype=torch.bool,
+                                     device=q.device), diagonal=S_k - S_q)
+        # the fill is an fp32 number, so the masked logits are fp32
+        logits = torch.where(mask[None, None], logits.to(F32),
+                             torch.finfo(F32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return ein("bhqk,bhkd->bhqd", probs, v)

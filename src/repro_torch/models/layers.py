@@ -10,7 +10,7 @@ reference's ``*_apply(p, x)`` functions one for one. Precision policy as in
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -133,6 +133,63 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return ein("bhqk,bkhd->bqhd", probs, v).to(v.dtype)
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_rep: int,
+            causal: bool = True,
+            qoff: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention of the model path. q: ``[B, Sq, nq, hd]``;
+    k / v: ``[B, Sk, nkv, hd]`` (head h reads kv head ``h // n_rep``);
+    causal: query row i of batch row b sees the keys up to ``qoff[b] + i``
+    (``qoff`` None: up to ``i + Sk - Sq``). Returns ``[B, Sq, nq, hd]``.
+
+    The choice is by device, never a fallback. On a CUDA tensor the
+    hand-written ``flash_attention`` kernel runs, on the unexpanded K/V and
+    the activations in place (``kernels.flash_attention.attend``); a kernel
+    failure raises. On a CPU tensor the reference's own model arithmetic,
+    :func:`_sdpa`, runs, so that the CPU path stays token and logit equal
+    to the reference's model (which never calls its flash kernel)."""
+    B, Sq, nq, hd = q.shape
+    Sk = k.shape[1]
+    if q.is_cuda:
+        from repro_torch.kernels import flash_attention as FA
+        out = torch.empty((B, Sq, nq, hd), dtype=q.dtype, device=q.device)
+        FA.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  causal, qoff=qoff, out=out.transpose(1, 2))
+        return out
+    mask = None
+    if causal and qoff is None:
+        mask = torch.tril(torch.ones((Sq, Sk), dtype=torch.bool,
+                                     device=q.device),
+                          diagonal=Sk - Sq)[None, None, :, :]
+    elif causal:
+        last = qoff.to(q.device)[:, None] + torch.arange(Sq, device=q.device)
+        mask = (torch.arange(Sk, device=q.device)[None, None, :]
+                <= last[:, :, None])[:, None, :, :]          # [B, 1, Sq, Sk]
+    return _sdpa(q, k, v, mask, n_rep)
+
+
+def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq,
+               positions=None, causal: bool = True,
+               kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence self-attention (forward / capture / loss). Returns
+    ``[B, S, d]``. Cross-attention (``kv``, the whisper decoder) is not
+    ported."""
+    if kv is not None:
+        raise NotImplementedError(
+            "cross-attention (kv=...) belongs to the encoder-decoder family, "
+            "which is not ported yet")
+    B, S, _ = x.shape
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _qkv(cfg, p, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if inv_freq is not None:
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+    out = _attend(q, k, v, n_rep, causal=causal)
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
+    return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
+
+
 def attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq):
     """Causal full-sequence attention that also returns the (k, v) to seed a
     decode cache. Returns (out [B,S,d], k [B,S,nkv,hd], v [B,S,nkv,hd])."""
@@ -143,49 +200,96 @@ def attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq):
     if inv_freq is not None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-    mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                 device=x.device))[None, None, :, :]
-    out = _sdpa(q, k, v, mask, n_rep)
+    out = _attend(q, k, v, n_rep)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
     out = ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
     return out, k, v
 
 
+class DecodeView(NamedTuple):
+    """What dense decode needs besides the cache, the same in every layer of
+    one step (built once per step by :func:`decode_view`): the slot index
+    ``b_iota`` and the row each slot writes (``row``, clamped; ``in_range``
+    false for a frozen slot), and the cache seen as a pool of
+    ``block_size``-row blocks: the contiguous table ``tab`` (int32) and the
+    visible rows ``lens``."""
+    b_iota: torch.Tensor
+    row: torch.Tensor
+    in_range: torch.Tensor
+    tab: torch.Tensor
+    lens: torch.Tensor
+    block_size: int
+
+
+def decode_view(pos: torch.Tensor, rows: int, s_max: Optional[int] = None,
+                block_size: Optional[int] = None) -> DecodeView:
+    """The :class:`DecodeView` of a dense cache of ``rows`` rows per slot at
+    positions ``pos`` [B]: ``s_max`` (default ``rows``) is the slot capacity,
+    ``block_size`` (default ``rows``) divides ``rows``; ``tab[b, j] = b *
+    rows / block_size + j`` and ``lens = min(pos + 1, s_max)``."""
+    s_max = rows if s_max is None else s_max
+    bs = rows if block_size is None else block_size
+    if rows % bs or not 0 < s_max <= rows:
+        raise ValueError(f"a cache of {rows} rows does not fit s_max={s_max} "
+                         f"in blocks of {bs} rows")
+    B, dev = pos.shape[0], pos.device
+    b_iota = torch.arange(B, device=dev)
+    mb = rows // bs
+    tab = (b_iota[:, None] * mb
+           + torch.arange(mb, device=dev)[None, :]).to(torch.int32)
+    return DecodeView(b_iota=b_iota,
+                      row=pos.clamp(max=s_max - 1).to(torch.long),
+                      in_range=(pos < s_max)[:, None, None], tab=tab,
+                      lens=torch.clamp(pos + 1, max=s_max), block_size=bs)
+
+
 def attn_decode_slots(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                       cache_k: torch.Tensor, cache_v: torch.Tensor,
-                      pos: torch.Tensor, *, inv_freq):
+                      pos: torch.Tensor, *, inv_freq,
+                      view: Optional[DecodeView] = None):
     """Single-token decode with PER-SLOT positions (continuous batching).
 
-    x: [B, 1, d]; cache_k/v: [B, S_max, nkv, hd], UPDATED IN PLACE (the
+    x: [B, 1, d]; cache_k/v: [B, rows, nkv, hd], UPDATED IN PLACE (the
     reference returns new arrays); pos: [B] integer, the row slot b's new
-    token is written to. Rows past ``pos[b]`` may hold stale KV from an
-    evicted request: they are masked here and rewritten the step they become
-    current.
+    token is written to. ``view``: the step's :func:`decode_view` (default:
+    ``s_max = rows`` in one block). The slot capacity ``s_max`` may be less
+    than ``rows`` (the cache rounded up to a multiple of the block size):
+    the rows past it are never visible. Rows past ``pos[b]`` may hold stale
+    KV from an evicted request: they are masked here and rewritten the step
+    they become current.
 
-    A slot with ``pos[b] >= S_max`` is a frozen slot whose request filled its
+    The attention runs through ``ops.paged_attention`` over the cache viewed
+    as a pool of ``block_size``-row blocks (no copy) with the contiguous
+    table ``tab[b, j] = b * rows / block_size + j`` and ``lens = min(pos + 1,
+    s_max)``: the paged layout's own kernel on the card, so dense and paged
+    decode are one computation over the same rows in the same order; on the
+    CPU its plain version, the dense ``_sdpa`` arithmetic on the decode mask.
+
+    A slot with ``pos[b] >= s_max`` is a frozen slot whose request filled its
     cache exactly (``prompt + max_new == s_max + 1``). The reference's
     scatter silently drops that out-of-range write; an out-of-range
     ``index_put_`` on CUDA is a device-side assert, so the write is masked
     here: the slot's row index is clamped and its old contents written back.
-    Returns (out [B,1,d], cache_k, cache_v)."""
-    B = x.shape[0]
-    S_max = cache_k.shape[1]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
+    All its ``s_max`` rows stay visible, as under the reference's mask
+    ``arange(s_max) <= pos``. Returns (out [B,1,d], cache_k, cache_v)."""
+    from repro_torch.kernels import ops
+    B, rows = x.shape[0], cache_k.shape[1]
+    if view is None:
+        view = decode_view(pos, rows)
     q, k, v = _qkv(cfg, p, x)
     positions = pos[:, None]                               # [B, 1]
     if inv_freq is not None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-    b_iota = torch.arange(B, device=x.device)
-    in_range = (pos < S_max)[:, None, None]
-    row = pos.clamp(max=S_max - 1).to(torch.long)
+    b_iota, row, in_range = view.b_iota, view.row, view.in_range
     cache_k[b_iota, row] = torch.where(in_range, k[:, 0].to(cache_k.dtype),
                                        cache_k[b_iota, row])
     cache_v[b_iota, row] = torch.where(in_range, v[:, 0].to(cache_v.dtype),
                                        cache_v[b_iota, row])
-    valid = (torch.arange(S_max, device=x.device)[None, :]
-             <= pos[:, None])[:, None, None, :]
-    out = _sdpa(q, cache_k, cache_v, valid, n_rep)
+    pool = (B * rows // view.block_size, view.block_size) + tuple(
+        cache_k.shape[2:])
+    out = ops.paged_attention(q[:, 0], cache_k.view(pool), cache_v.view(pool),
+                              view.tab, view.lens)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     out = ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
     return out, cache_k, cache_v
@@ -275,9 +379,10 @@ def attn_verify_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     (``pos`` = the shared-prefix rows it adopted); their K/V rows are written
     through the table, then the slot's whole ``s_max`` view is gathered
     (dequantized to the model type with ``dequantize_kv`` when the pool is
-    int8) and attended with the dense path's :func:`_sdpa`, query i seeing
-    rows ``<= pos[b] + i``. Sentinel entries clip into range and their rows
-    are masked. x: ``[B, T, d]``; pools / tab as :func:`attn_decode_paged`.
+    int8) and attended through :func:`_attend` with ``qoff = pos``, query i
+    seeing rows ``<= pos[b] + i`` (the flash kernel on the card, the dense
+    path's ``_sdpa`` on the CPU). Sentinel entries clip into
+    range and their rows are masked. x: ``[B, T, d]``; pools / tab as :func:`attn_decode_paged`.
     Returns out ``[B, T, d]``."""
     B, T, _ = x.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -300,9 +405,7 @@ def attn_verify_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
                              x.dtype)
         vc = Q.dequantize_kv(vc, vs[tabc].reshape(B, s_max, cfg.n_kv_heads),
                              x.dtype)
-    valid = (torch.arange(s_max, device=x.device)[None, None, :]
-             <= positions[:, :, None])[:, None, :, :]      # [B, 1, T, s_max]
-    out = _sdpa(q, kc, vc, valid, n_rep)
+    out = _attend(q, kc, vc, n_rep, qoff=pos)
     out = out.reshape(B, T, cfg.n_heads * cfg.hd)
     return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
 

@@ -1,6 +1,9 @@
-"""The model and its slot API for continuous batching (dense / moe families).
+"""The model: the full-sequence forward and loss, and the slot API for
+continuous batching (dense / moe families).
 
   Model(cfg, device, generator)                        -> module with random weights
+  forward(cfg, model, batch, capture)                  -> (logits, aux, captures)
+  loss(cfg, model, batch)                              -> (scalar, metrics)
   init_slot_cache(cfg, n_slots, s_max, device)         -> cache dict
   prefill_slots(cfg, model, tokens, lengths)           -> (logits, k, v)
   insert_slots(cache, slots, k_new, v_new, lengths)    -> cache (in place)
@@ -87,18 +90,71 @@ def _inv_freq(cfg: ModelConfig, device):
     return L.rope_freqs(cfg.hd, cfg.rope_theta, device=device)
 
 
+@torch.inference_mode()
+def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
+            capture: bool = False):
+    """Full-sequence forward. batch: ``{"tokens": [B, S]}``. Returns (logits
+    ``[B, S, V]`` fp32, aux loss (summed over the layers), captures or None).
+    Captures: ``(expert_inputs [L, B, S, d], usage_counts [L, N])`` of every
+    MoE layer, ``stack`` then ``stack_c``."""
+    inv_freq = _inv_freq(cfg, batch["tokens"].device)
+    x = L.embed_apply(model.embed, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caps_list = []
+    for blocks in model.stacks():
+        x, a, caps = T.stack_apply(cfg, blocks, x, inv_freq=inv_freq,
+                                   capture=capture)
+        aux = aux + a
+        caps_list.append(caps)
+    caps = None
+    if capture and cfg.moe is not None:
+        caps = tuple(torch.cat(parts, dim=0) for parts in zip(*caps_list))
+    x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
+    return L.lm_head(cfg, model.embed, x), aux, caps
+
+
+def loss(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
+    """Next-token cross-entropy (+ the MoE aux loss times its coefficient).
+    Returns (total, {"ce": ce, "aux": aux}), all fp32 scalars."""
+    logits, aux, _ = forward(cfg, model, batch)
+    tokens = batch["tokens"]
+    targets = tokens[:, 1:].to(torch.long)
+    lg = logits[:, :-1].to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None or tuple(mask.shape) != tuple(targets.shape):
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=lg.device)
+    mask = mask.to(torch.float32)
+    ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+
 def init_slot_cache(cfg: ModelConfig, n_slots: int, s_max: int,
-                    device) -> Dict[str, torch.Tensor]:
+                    device, block_size: int = 16) -> Dict[str, torch.Tensor]:
     """Persistent KV cache of the continuous-batching engine: one row per
-    serving slot, ``pos`` a PER-SLOT length vector."""
+    serving slot, ``pos`` a PER-SLOT length vector.
+
+    ``k`` / ``v``: ``[L, n_slots, rows, nkv, hd]`` with ``rows`` = ``s_max``
+    rounded up to a multiple of ``block_size``: decode attends the cache as a
+    pool of ``block_size``-row blocks through the paged kernel
+    (``layers.attn_decode_slots``), the paged layout's block size keeping
+    dense and paged decode one computation. Rows past ``s_max`` are never
+    visible. ``s_max`` and ``kv_block`` ride along as 0-d int tensors on the
+    host (read without a device sync)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"slotted serving is token-only (dense/moe), not {cfg.family}")
     dt = cfg.param_dtype
-    shape = (cfg.n_layers, n_slots, s_max, cfg.n_kv_heads, cfg.hd)
+    rows = -(-s_max // block_size) * block_size
+    shape = (cfg.n_layers, n_slots, rows, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device)}
+            "pos": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+            "s_max": torch.tensor(s_max), "kv_block": torch.tensor(block_size)}
 
 
 def init_paged_cache(cfg: ModelConfig, n_slots: int, s_max: int, device, *,
@@ -270,12 +326,14 @@ def decode_step_slots(cfg: ModelConfig, model: Model,
         cache["pos"] = torch.where(active, pos + 1, pos)
         x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
         return L.lm_head(cfg, model.embed, x)[:, 0], cache
+    view = L.decode_view(pos, cache["k"].shape[2], int(cache["s_max"]),
+                         int(cache["kv_block"]))     # one for every layer
     lo = 0
     for blocks in model.stacks():
         hi = lo + len(blocks)
         x, _, _ = T.stack_decode_slots(cfg, blocks, x, cache["k"][lo:hi],
                                        cache["v"][lo:hi], pos,
-                                       inv_freq=inv_freq)
+                                       inv_freq=inv_freq, view=view)
         lo = hi
     cache["pos"] = torch.where(active, pos + 1, pos)
     x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)

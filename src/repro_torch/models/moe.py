@@ -1,13 +1,18 @@
-"""Mixture-of-Experts layer, inference side.
+"""Mixture-of-Experts layer.
 
-Two dispatch paths, both dropless:
+Three dispatch paths:
 
-* ``ragged`` : sort the (token, slot) pairs by expert, run the grouped
-  kernel over the sorted rows, bring the rows back to token order and add each
-  token's k rows in slot order.
+* ``ragged`` : dropless; sort the (token, slot) pairs by expert, run the
+  grouped kernel over the sorted rows, bring the rows back to token order and
+  add each token's k rows in slot order.
 * ``gather`` : ragged that sends decode-SHAPED calls (one token per sequence
   and at most ``gather_max_tokens`` of them) to the per-token gather kernel;
   prefill buckets keep the grouped kernel.
+* ``dense``  : the reference's default, GShard-style capacity dispatch in
+  groups of ``group_size`` tokens (tokens past an expert's capacity are
+  dropped), plain PyTorch on both devices as the reference leaves it to its
+  compiler. The compression pipeline calibrates through it: capacity drops
+  change the next layers' inputs.
 
 Compressed (merged) models keep the ORIGINAL router ``[d, N]`` and add an
 integer ``remap`` table ``[N] -> [M]``; the expert tables then hold M merged
@@ -17,14 +22,17 @@ logits of any original expert whose remap lands on a pad row are masked, so
 the padding is unreachable even under a corrupted remap.
 
 Int8 tables (:mod:`repro_torch.core.quant`): a quantized layer holds a
-``qexp`` set of six tensors instead of ``wg``/``wu``/``wd``, and both paths
-dispatch to the ``_q`` kernels. The int8 gather kernel emits the per-pair rows
-and the combine runs outside it, in the same slot order as the ragged path's,
-so int8 gather == int8 ragged bitwise at any k too.
+``qexp`` set of six tensors instead of ``wg``/``wu``/``wd``; ragged and
+gather dispatch to the ``_q`` kernels, dense dequantizes up front. The int8
+gather kernel emits the per-pair rows and the combine runs outside it, in the
+same slot order as the ragged path's, so int8 gather == int8 ragged bitwise
+at any k too.
 
-``dispatch="dense"`` (capacity dispatch), ``route`` / ``balance_loss``
-(training), ``capture=True`` (calibration) and expert parallelism belong to
-later slices of the port and raise ``NotImplementedError`` here.
+Training / capture routing (``route``: full softmax, top-k, renormalised) and
+the load-balance loss run when ``need_aux`` or ``capture`` is set;
+``capture=True`` also returns the expert inputs, the usage counts over the
+ORIGINAL experts and the top-k ids. Expert parallelism belongs to a later
+slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,20 +40,25 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.core import quant as Q
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import combine_in_order
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, _param, dense_init, mlp_apply
-from repro_torch.models.numerics import ein32
+from repro_torch.models.numerics import ein, ein32
 
 F32 = torch.float32
 
 
 class MoEOutput(NamedTuple):
     y: torch.Tensor                    # [B, S, d]
-    aux_loss: torch.Tensor             # scalar zero on the inference path
+    aux_loss: torch.Tensor             # scalar (zero on the inference path)
+    # capture (None when capture=False)
+    expert_inputs: Optional[torch.Tensor] = None   # [B, S, d]
+    usage_counts: Optional[torch.Tensor] = None    # [N] fp32, ORIGINAL experts
+    topk_idx: Optional[torch.Tensor] = None        # [B, S, k] original ids
 
 
 class MoE(nn.Module):
@@ -123,14 +136,93 @@ def route_infer(cfg: ModelConfig, p: MoE, x: torch.Tensor):
 
 
 def route(cfg: ModelConfig, p: MoE, x: torch.Tensor):
-    raise NotImplementedError(
-        "route (full softmax for training / capture) is not ported yet: it "
-        "comes with the training and compression slices")
+    """Training / capture routing: (topk_weights [.., k] fp32 renormalised
+    among the k, topk_idx [.., k] int32 in ORIGINAL expert space, probs
+    [.., N] fp32). Top-k on the full softmax of the live-masked router
+    logits."""
+    m = cfg.moe
+    logits = ein32("...d,de->...e", x.to(F32), p.router)
+    logits = torch.where(p.remap >= p.live, float("-inf"), logits)
+    probs = torch.softmax(logits, dim=-1)
+    w, idx = _topk_iterative(probs, m.top_k)
+    w = w / torch.sum(w, dim=-1, keepdim=True)       # renormalise among top-k
+    return w, idx, probs
 
 
-def balance_loss(cfg: ModelConfig, probs, idx):
-    raise NotImplementedError(
-        "balance_loss is not ported yet: it comes with the training slice")
+def balance_loss(cfg: ModelConfig, probs: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss over ORIGINAL experts."""
+    E = cfg.moe.n_experts
+    me = torch.mean(probs.reshape(-1, E), dim=0)                 # mean prob
+    sel = F.one_hot(idx.reshape(-1, cfg.moe.top_k).to(torch.long),
+                    E).to(F32)
+    ce = torch.mean(torch.sum(sel, dim=1), dim=0)                # tokens/expert
+    return E * torch.sum(me * ce) / cfg.moe.top_k
+
+
+# ---------------------------------------------------------------------------
+# dense (capacity) dispatch: GShard style, group-local
+# ---------------------------------------------------------------------------
+
+def _capacity(m, G: int, E: int) -> int:
+    c = int(m.top_k * G * m.capacity_factor / E)
+    return max(4, -(-c // 4) * 4)                    # up to a multiple of 4
+
+
+def capacity_experts(cfg: ModelConfig, p: MoE) -> int:
+    """Expert count that SIZES the dense dispatch's capacity: the smallest
+    live count for a heterogeneous compressed suffix (identified by its
+    table width ``moe_merged``), else the stored experts. Sizing by the
+    padded width would drop tokens the unpadded layer keeps."""
+    E = n_real_experts(p)
+    if cfg.moe_merged_layers is not None and E == cfg.moe_merged:
+        return min(cfg.moe_merged_layers)
+    return E
+
+
+def _dispatch_tensors(cfg: ModelConfig, w: torch.Tensor, idx: torch.Tensor,
+                      E: int, C: int):
+    """combine ``[n, G, E, C]`` fp32 and dispatch ``[n, G, E, C]`` bool per
+    group. w, idx: ``[n, G, k]``. A token's j-th pick takes the next free
+    position of its expert (earlier picks of all tokens first, then tokens
+    in order); positions at or past C are dropped."""
+    m = cfg.moe
+    n, G = w.shape[:2]
+    counts = torch.zeros((n, E), dtype=torch.int64, device=w.device)
+    combine = torch.zeros((n, G, E, C), dtype=F32, device=w.device)
+    for j in range(m.top_k):
+        mj = F.one_hot(idx[..., j].to(torch.long), E)            # [n, G, E]
+        loc = torch.cumsum(mj, dim=1) - mj + counts[:, None, :]   # position
+        counts = counts + mj.sum(dim=1)
+        keep = (loc < C) & (mj > 0)
+        slot = F.one_hot(torch.where(keep, loc, C), C + 1)[..., :C].to(F32)
+        combine = combine + (w[..., j, None, None] * mj[..., None].to(F32)
+                             * slot)
+    return combine, combine > 0.0
+
+
+def _moe_dense_groups(cfg: ModelConfig, p: MoE, x2: torch.Tensor,
+                      w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x2: ``[n, G, d]``; w / idx: ``[n, G, k]`` (idx in REAL expert space).
+    Returns ``[n, G, d]``. The reference's einsums and rounding points:
+    dispatch, expert products and combine in the model type with fp32
+    accumulation (the combine weights rounded to it too)."""
+    E = n_real_experts(p)
+    G = x2.shape[1]
+    C = _capacity(cfg.moe, G, capacity_experts(cfg, p))
+    combine, dispatch = _dispatch_tensors(cfg, w, idx, E, C)
+    dt = x2.dtype
+    qt = _quant_tables(p)
+    if qt is not None:
+        wg, wu, wd = qt.dequant(dt)
+    else:
+        wg, wu, wd = p.wg, p.wu, p.wd
+    xe = ein("gtec,gtd->gecd", dispatch.to(dt), x2).to(dt)       # [n, E, C, d]
+    h_g = ein("gecd,edf->gecf", xe, wg)
+    h_u = ein("gecd,edf->gecf", xe, wu)
+    h = (F.silu(h_g) * h_u).to(dt)
+    ye = ein("gecf,efd->gecd", h, wd).to(dt)
+    return ein("gtec,gecd->gtd", combine.to(dt), ye).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -185,23 +277,26 @@ def _moe_gather(cfg: ModelConfig, p: MoE, xf: torch.Tensor, w: torch.Tensor,
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
               capture: bool = False, need_aux: bool = True) -> MoEOutput:
-    """x: [B, S, d] (or [B, 1, d] for decode). Only the inference form
-    (``need_aux=False``, ``capture=False``) is ported."""
+    """x: [B, S, d] (or [B, 1, d] for decode).
+
+    ``need_aux=False`` and ``capture=False`` (serving): :func:`route_infer`,
+    ``aux_loss`` a constant zero. Otherwise :func:`route` and
+    :func:`balance_loss`; ``capture=True`` adds the expert inputs ``x``, the
+    usage counts over the ORIGINAL experts and the top-k ids."""
     m = cfg.moe
-    if capture or need_aux:
-        raise NotImplementedError(
-            "moe_apply(capture=True / need_aux=True) needs route() and "
-            "balance_loss(): not ported yet (training and compression slices)")
     if m.ep_axis is not None or m.ep_degree > 1:
         raise NotImplementedError(
             "expert-parallel dispatch (ep_axis / ep_degree) is not ported yet: "
             "it comes with the mesh slice")
-    if m.dispatch not in ("gather", "ragged"):
-        raise NotImplementedError(
-            f"dispatch={m.dispatch!r} is not ported yet (capacity dispatch "
-            f"comes with the training slice); use 'gather' or 'ragged'")
+    if m.dispatch not in ("gather", "ragged", "dense"):
+        raise ValueError(f"unknown MoE dispatch {m.dispatch!r}")
     B, S, d = x.shape
-    w, idx = route_infer(cfg, p, x)
+    if capture or need_aux:
+        w, idx, probs = route(cfg, p, x)
+        aux = balance_loss(cfg, probs, idx)
+    else:
+        w, idx = route_infer(cfg, p, x)
+        aux = torch.zeros((), dtype=F32, device=x.device)
     ridx = p.remap[idx.to(torch.long)]               # original -> real experts
 
     T = B * S
@@ -212,9 +307,25 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
     # gather_max_tokens of them; prefill buckets keep the grouped kernel
     if m.dispatch == "gather" and S == 1 and T <= m.gather_max_tokens:
         y = _moe_gather(cfg, p, xf, wf, rf)
-    else:
+    elif m.dispatch in ("gather", "ragged"):
         y = _moe_ragged(cfg, p, xf, wf, rf)
+    else:
+        G = min(m.group_size, T)
+        n_groups = -(-T // G)
+        pad = n_groups * G - T
+        if pad:
+            xf = F.pad(xf, (0, 0, 0, pad))
+            wf = F.pad(wf, (0, 0, 0, pad))
+            rf = F.pad(rf, (0, 0, 0, pad))
+        y = _moe_dense_groups(cfg, p, xf.reshape(n_groups, G, d),
+                              wf.reshape(n_groups, G, m.top_k),
+                              rf.reshape(n_groups, G, m.top_k))
+        y = y.reshape(n_groups * G, d)[:T]
     y = y.reshape(B, S, d)
     if m.n_shared_experts:
         y = y + mlp_apply(p.shared, x)
-    return MoEOutput(y, torch.zeros((), dtype=F32, device=x.device))
+    if capture:
+        counts = F.one_hot(idx.reshape(-1, m.top_k).to(torch.long),
+                           m.n_experts).to(F32).sum(dim=(0, 1))
+        return MoEOutput(y, aux, x, counts, idx)
+    return MoEOutput(y, aux)

@@ -1,4 +1,5 @@
-"""Decoder-only layer stacks of the serving path (dense MLP or MoE blocks).
+"""Decoder-only layer stacks (dense MLP or MoE blocks): the full-sequence
+forward with calibration capture, and the serving path.
 
 The reference scans stacked ``[L, ...]`` parameters; here a stack is a Python
 sequence of :class:`Block` modules and the scan is a loop.
@@ -37,6 +38,40 @@ def _ffn(cfg: ModelConfig, p: Block, hn: torch.Tensor) -> torch.Tensor:
     return L.mlp_apply(p.mlp, hn)
 
 
+def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor, *, inv_freq,
+                positions=None, causal: bool = True, capture: bool = False):
+    """Full-sequence block. Returns (y, aux_loss, capture) with capture
+    ``(expert_inputs [B, S, d], usage_counts [N])`` of the MoE layer when
+    ``capture`` (None otherwise and for dense MLP blocks)."""
+    a = L.attn_apply(cfg, p.attn, L.rmsnorm(p.ln1, x, cfg.norm_eps),
+                     inv_freq=inv_freq, positions=positions, causal=causal)
+    h = x + a
+    hn = L.rmsnorm(p.ln2, h, cfg.norm_eps)
+    if cfg.moe is not None:
+        out = M.moe_apply(cfg, p.moe, hn, capture=capture)
+        cap = (out.expert_inputs, out.usage_counts) if capture else None
+        return h + out.y, out.aux_loss, cap
+    return (h + L.mlp_apply(p.mlp, hn),
+            torch.zeros((), dtype=torch.float32, device=x.device), None)
+
+
+def stack_apply(cfg: ModelConfig, blocks: Sequence[Block], x: torch.Tensor, *,
+                inv_freq, capture: bool = False):
+    """The stack's full-sequence forward, a loop over its blocks. Returns
+    (y, total aux loss, captures): captures ``(expert_inputs [L, B, S, d],
+    usage_counts [L, N])`` when ``capture`` on an MoE stack, else None."""
+    h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caps = []
+    for p in blocks:
+        h, a, cap = block_apply(cfg, p, h, inv_freq=inv_freq, capture=capture)
+        aux = aux + a
+        caps.append(cap)
+    if capture and cfg.moe is not None:
+        return h, aux, tuple(torch.stack(c, dim=0) for c in zip(*caps))
+    return h, aux, None
+
+
 def stack_prefill(cfg: ModelConfig, blocks: Sequence[Block], x: torch.Tensor,
                   *, inv_freq):
     """Full-sequence forward that also emits per-layer (k, v) decode caches.
@@ -55,18 +90,23 @@ def stack_prefill(cfg: ModelConfig, blocks: Sequence[Block], x: torch.Tensor,
 
 def stack_decode_slots(cfg: ModelConfig, blocks: Sequence[Block],
                        x: torch.Tensor, cache_k: torch.Tensor,
-                       cache_v: torch.Tensor, pos: torch.Tensor, *, inv_freq):
+                       cache_v: torch.Tensor, pos: torch.Tensor, *, inv_freq,
+                       view: Optional[L.DecodeView] = None):
     """One-token decode with per-slot positions (continuous batching).
 
-    cache_k/v: [L, B, S_max, nkv, hd] with L == len(blocks), updated IN
-    PLACE layer by layer; pos: [B] per-slot lengths. Under
-    ``dispatch='ragged'`` every decode step runs the grouped kernel over the
-    B slot tokens. Returns (y, cache_k, cache_v)."""
+    cache_k/v: [L, B, rows, nkv, hd] with L == len(blocks), updated IN
+    PLACE layer by layer; pos: [B] per-slot lengths; ``view``: the step's
+    ``layers.decode_view``, the same for every layer (default: ``s_max`` =
+    ``rows`` in one block). Under ``dispatch='ragged'`` every decode step
+    runs the grouped kernel over the B slot tokens. Returns (y, cache_k,
+    cache_v)."""
+    if view is None:
+        view = L.decode_view(pos, cache_k.shape[2])
     h = x
     for i, p in enumerate(blocks):
         hn = L.rmsnorm(p.ln1, h, cfg.norm_eps)
         a, _, _ = L.attn_decode_slots(cfg, p.attn, hn, cache_k[i], cache_v[i],
-                                      pos, inv_freq=inv_freq)
+                                      pos, inv_freq=inv_freq, view=view)
         h = h + a
         h = h + _ffn(cfg, p, L.rmsnorm(p.ln2, h, cfg.norm_eps))
     return h, cache_k, cache_v

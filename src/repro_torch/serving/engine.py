@@ -2,7 +2,7 @@
 
 * **Slots.** The engine owns a persistent KV cache, updated in place. A
   request occupies one slot from admission to completion. Dense layout
-  (``kv_layout="dense"``): ``[L, n_slots, s_max, nkv, hd]`` + per-slot
+  (``kv_layout="dense"``): ``[L, n_slots, rows, nkv, hd]`` + per-slot
   ``pos``; eviction just marks the slot free, stale rows are masked by the
   per-slot causal mask and overwritten by the next occupant.
 * **Paged KV (``kv_layout="paged"``).** A flat pool of ``kv_blocks`` blocks
@@ -19,8 +19,9 @@
 * **Admission.** Pending requests sit in a heap ordered by
   ``(arrival_time, uid, seq)``. At the top of every engine step each free slot
   claims the next due request, and requests admitted together that share a
-  prompt bucket (paged: a SUFFIX bucket, past the shared-prefix rows) form
-  one admission group: one step call and one readback. Inside it each prompt
+  prompt bucket form one admission group: one step call and one readback
+  (paged: a row forwards its SUFFIX past the shared-prefix rows, padded to
+  the whole prompt's bucket). Inside it each prompt
   is prefilled alone (``steps.make_slot_admit``), so its tokens do not depend
   on which requests share its group.
 * **Decode.** ``decode_block`` (K) decode steps run back to back on the
@@ -265,7 +266,8 @@ class Engine:
             self._admit_step = ST.make_slot_admit_paged(cfg)
         else:
             self.cache = MD.init_slot_cache(cfg, ec.n_slots, ec.s_max,
-                                            self.device)
+                                            self.device,
+                                            block_size=ec.kv_block)
             self._admit_step = ST.make_slot_admit(cfg)
         self._decode = ST.make_slot_decode(cfg)
         self._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
@@ -652,18 +654,22 @@ class Engine:
             claimed.append((req, free.pop(0), shared))
         if not claimed:
             return finished
+        # a paged row forwards only its prompt SUFFIX past the shared rows,
+        # but padded to the bucket of the WHOLE prompt (the reference pads
+        # to the suffix's): on the card the fp32 router product gives a row
+        # other bits at 64 rows than among the 256 of a full prefill, so
+        # the suffix runs at the full prefill's row count and paged and
+        # dense admission give bitwise-equal rows
         if self.ec.batch_admission:
-            # grouped by the bucket of the SUFFIX (the tokens the admission
-            # forward runs); in the dense layout shared is always 0
             groups: Dict[int, List[Tuple[Request, int, int]]] = {}
             for req, slot, shared in claimed:
-                groups.setdefault(self.bucket_for(req.n_prompt - shared),
+                groups.setdefault(self.bucket_for(req.n_prompt),
                                   []).append((req, slot, shared))
             for bucket in sorted(groups):
                 self._admit_group(bucket, groups[bucket], now, finished)
         else:
             for req, slot, shared in claimed:
-                self._admit_group(self.bucket_for(req.n_prompt - shared),
+                self._admit_group(self.bucket_for(req.n_prompt),
                                   [(req, slot, shared)], now, finished)
         return finished
 

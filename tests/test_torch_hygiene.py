@@ -45,12 +45,27 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert "imported" in out.stdout
 
 
+#: the one function of chip_smoke.py that times a library attention call as
+#: the kernels line's ``library_ms`` yardstick (never called by the port)
+YARDSTICK = "library_attention_ms"
+
+
+def _nodes(tree):
+    """Every node, except the body of chip_smoke.py's yardstick function."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == YARDSTICK:
+            node.body = []
+    return ast.walk(tree)
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_forbidden_import_or_call(path):
     text = path.read_text()
     tree = ast.parse(text)
-    for node in ast.walk(tree):
+    if path.name != "chip_smoke.py":
+        assert YARDSTICK not in text, path
+    for node in _nodes(tree):
         names = []
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]

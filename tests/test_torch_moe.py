@@ -1,7 +1,7 @@
 """MoE layer differentials: routing, remap / live masking, both dispatch
 paths and shared experts against the reference (fp32, CPU), the port's own
-gather == ragged contract, and the NotImplementedErrors of the parts that
-wait for later slices.
+gather == ragged contract, and the NotImplementedError of expert
+parallelism, which waits for a later slice.
 """
 import dataclasses
 
@@ -126,20 +126,19 @@ def test_gather_equals_ragged_inside_the_port(dtype):
 
 
 def test_later_slices_raise():
+    """Expert parallelism still belongs to a later slice; routing for
+    training / capture, the balance loss, capture and capacity dispatch are
+    ported (held against the reference in test_torch_forward.py) and run."""
     _, _, pcfg, mod = _layer()
     x = torch.zeros((1, 1, 64))
-    with pytest.raises(NotImplementedError, match="capture"):
-        M.moe_apply(pcfg, mod, x, capture=True)
-    with pytest.raises(NotImplementedError):
-        M.moe_apply(pcfg, mod, x)                       # need_aux=True
-    dense = pcfg.replace(moe=dataclasses.replace(pcfg.moe, dispatch="dense"))
-    with pytest.raises(NotImplementedError, match="dense"):
-        M.moe_apply(dense, mod, x, need_aux=False)
     ep = pcfg.replace(moe=dataclasses.replace(pcfg.moe, ep_axis="model",
                                               ep_degree=2))
     with pytest.raises(NotImplementedError, match="expert-parallel"):
         M.moe_apply(ep, mod, x, need_aux=False)
-    with pytest.raises(NotImplementedError):
-        M.route(pcfg, mod, x)
-    with pytest.raises(NotImplementedError):
-        M.balance_loss(pcfg, None, None)
+    out = M.moe_apply(pcfg, mod, x, capture=True)
+    assert out.expert_inputs is x and out.usage_counts.shape == (8,)
+    assert bool(torch.isfinite(M.moe_apply(pcfg, mod, x).aux_loss))
+    dense = pcfg.replace(moe=dataclasses.replace(pcfg.moe, dispatch="dense"))
+    assert M.moe_apply(dense, mod, x, need_aux=False).y.shape == x.shape
+    w, idx, probs = M.route(pcfg, mod, x)
+    assert bool(torch.isfinite(M.balance_loss(pcfg, probs, idx)))
