@@ -8,14 +8,18 @@ Needs CUDA and ``nvcc``; exits non-zero without them. Phases, each printing
 one JSON line:
 
   env       what it runs on (repro_torch.env.probe)
-  build     compiles the seven CUDA kernels from src/repro_torch/kernels/csrc
-  rehearse  the serve trace on the reduced fp32 config: the engine on the card
+  build     compiles the eight CUDA kernels from src/repro_torch/kernels/csrc
+  rehearse  the serve trace on the reduced fp32 configs: the engine on the card
             (CUDA kernels) against the same engine on the CPU (plain PyTorch),
-            token for token, in every served form: dense bf16-layout cache,
-            paged pool (and paged == dense on the card), paged int8 pool, int8
-            expert tables; and the admission shapes the trace produces
+            token for token, in every served form: qwen3-moe's dense
+            bf16-layout cache, paged pool (and paged == dense on the card),
+            paged int8 pool, int8 expert tables; granite-8b's dense cache,
+            paged pool and paged int8 pool; both configs sampled at
+            temperature 0.7; and the admission shapes the trace produces
   kernels   each kernel against its plain PyTorch version on the card: the case
-            lists of tests/test_torch_kernels*.py and test_torch_paged_attention.py
+            lists of tests/test_torch_kernels*.py, test_torch_paged_attention.py
+            and the reference's swiglu cases (tests/test_kernels.py; odd
+            widths, T = 1, zero weights giving exactly 0)
             (duplicate and out-of-range ids, zero-sized groups, live-masked pad
             rows, NaN in blocks a slot does not own, lens == 0, a contiguous
             table against the dense attention), then the serve phase's shapes at
@@ -28,7 +32,13 @@ one JSON line:
             last visible key dropped, over causal / non-causal, Sq < Sk, odd
             lengths, GQA and query offsets, and its rows are bitwise the same
             alone, in a batch, in a longer prefill and behind an offset; timed
-            at the admission and the capture shape beside one library call
+            at the admission and the capture shape beside one library call;
+            swiglu_mlp at widths past granite's f (yi-34b, qwen1.5-110b) and
+            kimi-k2's shared expert, == grouped_swiglu with one group bitwise,
+            a row alone == among 256 bitwise, timed at granite's decode and
+            admission shapes beside the cuBLAS composition the model's MLP
+            ran before it; the threefry bits and uniforms on the card == on
+            the CPU, the Gumbel noise to 2 ulps of max(|g|, 1)
   contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
             prompt admitted alone and in a group of four gives bitwise-equal
             logits (and what that costs per admission group); paged == dense
@@ -52,6 +62,14 @@ one JSON line:
             int8 KV must reach 0.95 at the reduced config). Then the same
             trace with decode_block=1 (token equal to decode_block=8) and
             dispatch="ragged" at --variant-layers
+  dense     granite-8b at its published widths and full depth (36 layers),
+            bf16, random weights: the contracts (fused K == stepwise and a
+            prompt alone == in a group of four on logits, paged == dense on
+            admission and decode logits, bitwise; decode_block=8 == 1 token
+            for token at temperature 0.7) and the logit gap of the kernel's
+            MLP against the cuBLAS MLP it replaced; then the trace served with
+            the dense cache, the paged pool (prefix hits) and the paged int8
+            pool, greedy, and the dense cache at temperature 0.7
   compress  MergeMoE on qwen3-moe-30b-a3b at full width, depth cut to 4
             layers (COMPRESS_LAYERS): calibration captured on the card through the
             model's forward with the config's own capacity dispatch (the
@@ -78,6 +96,7 @@ import os
 import statistics
 import sys
 import time
+import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -86,6 +105,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ARCH = "qwen3-moe-30b-a3b"
+#: the dense-family model, served at its published widths and full depth
+DENSE = "granite-8b"
+#: the sampled forms' temperature
+TEMPERATURE = 0.7
 #: published peaks of one H100 SXM (dense, no sparsity)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -117,6 +140,8 @@ TABLE = {
         replaces="src/repro/kernels/paged_attention.py:152"),
     "flash_attention": dict(source=CSRC + "flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:77"),
+    "swiglu_mlp": dict(source=CSRC + "swiglu_mlp.cu",
+                       replaces="src/repro/kernels/swiglu.py:49"),
 }
 
 
@@ -207,6 +232,17 @@ GATHER_CASES = {
     "T-zero": (0, 16, 16, 4, 2, None, None),
     "reduced-config": (4, 64, 32, 8, 2, None, None),
     "odd-widths": (3, 23, 31, 4, 2, None, None),
+}
+#: (T, d, f): the reference's swiglu cases (tests/test_kernels.py: its shape
+#: list and property test), T = 1, T not a multiple of the kernel's 8-row
+#: block, odd widths, a reduction axis longer than one staged chunk of 1024
+#: (d, then f, with a partial last chunk) and T = 0
+SWIGLU_CASES = {
+    "ref-32x16x32": (32, 16, 32), "ref-64x32x48": (64, 32, 48),
+    "ref-128x64x64": (128, 64, 64), "ref-48x24x96": (48, 24, 96),
+    "property-40x8x48": (40, 8, 48), "property-16x24x16": (16, 24, 16),
+    "T-one": (1, 16, 32), "T-13": (13, 24, 40), "odd-widths": (7, 23, 31),
+    "d-chunks": (9, 2500, 40), "f-chunks": (5, 16, 2100), "T-zero": (0, 16, 32),
 }
 #: (B, nq, nkv, hd, bs, mb) as in tests/test_torch_paged_attention.py
 PAGED_CASES = {"mha": (2, 4, 4, 16, 4, 3), "gqa4": (3, 8, 2, 16, 8, 2),
@@ -391,10 +427,11 @@ def flash_invariance(gen, dev, dtype) -> dict:
 
 def case_list(dev):
     """The case lists of tests/test_torch_kernels.py, test_torch_kernels_q.py,
-    test_torch_paged_attention.py and test_torch_flash.py at their reduced
-    shapes, for all seven kernels."""
+    test_torch_paged_attention.py, test_torch_flash.py and the reference's
+    swiglu cases at their reduced shapes, for all eight kernels."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import decode_moe, grouped_mlp, ops
+    from repro_torch.kernels import swiglu as SW
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
     gen = torch.Generator(device=dev).manual_seed(42)
@@ -447,6 +484,22 @@ def case_list(dev):
                              ops.KERNELS["gather_swiglu_q"].plain(
                                  x, qt, idx, w), dtype)
             note("gather_swiglu_q", err)
+        for name, (T, d, f) in SWIGLU_CASES.items():
+            x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
+            wg, wu, wd = [w[0] for w in tables(gen, 1, d, f, dtype, dev)]
+            got = SW.swiglu_mlp(x, wg, wu, wd)
+            err, _ = compare(f"swiglu_mlp[{name},{key}]", got,
+                             ops.KERNELS["swiglu_mlp"].plain(x, wg, wu, wd),
+                             dtype)
+            note("swiglu_mlp", err)
+        # the reference's zero-weights case: exactly 0
+        x = (torch.randn((16, 8), generator=gen, device=dev) * 0.5).to(dtype)
+        z = torch.zeros((8, 16), dtype=dtype, device=dev)
+        zero = SW.swiglu_mlp(x, z, z, z.t().contiguous())
+        torch.cuda.synchronize()
+        check(zero.shape == (16, 8) and bool((zero == 0).all()),
+              f"swiglu_mlp[zero weights,{key}]: not exactly 0")
+        n += 1
         for name, (B, nq, nkv, hd, bs, mb) in PAGED_CASES.items():
             nb = B * mb + 2
             q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, nb, bs,
@@ -826,6 +879,131 @@ def flash_main_shapes(dev, cfg, shapes):
     return recs
 
 
+def previous_mlp_apply(p, x):
+    """The model's MLP on the card before the swiglu_mlp kernel, as the
+    cuBLAS composition ``torch.mm`` x2, silu * mul, ``torch.mm`` over the
+    flattened rows, every product rounded to the model type (g and u in
+    bf16). A yardstick only, never called by the port: the kernels line's
+    ``library_ms`` for swiglu_mlp and the other side of ``mlp_logit_gap``."""
+    import torch.nn.functional as F
+    rows = x.reshape(-1, x.shape[-1])
+    h = F.silu(torch.mm(rows, p.wg)) * torch.mm(rows, p.wu)
+    return torch.mm(h, p.wd).reshape(x.shape)
+
+
+def mlp_weights(gen, d, f, dtype, dev):
+    """One dense MLP at the model's scale (N(0, 1/fan_in) weights)."""
+    return [(torch.randn(shape, generator=gen, device=dev)
+             / shape[0] ** 0.5).to(dtype) for shape in ((d, f), (d, f), (f, d))]
+
+
+def swiglu_main_shapes(dev, admission_rows: int):
+    """swiglu_mlp at full width: granite-8b's decode (8 slots) and admission
+    (the trace's largest bucket) shapes in bf16 and the decode shape in fp32,
+    checked against the plain version and timed beside its bound, the plain
+    version and the cuBLAS composition the model's MLP ran before; widths
+    past granite's f (yi-34b's f 20480, qwen1.5-110b's f 49152) and kimi-k2's
+    shared expert, checked; at granite's widths the kernel == grouped_swiglu
+    with one group, bitwise, and a row's result is the same alone, among 8
+    and among 256, bitwise."""
+    from repro_torch import configs
+    from repro_torch.kernels import grouped_mlp, ops
+    from repro_torch.kernels import swiglu as SW
+    gen = torch.Generator(device=dev).manual_seed(17)
+    plain = ops.KERNELS["swiglu_mlp"].plain
+    granite, yi, qwen = (configs.get(a) for a in (DENSE, "yi-34b",
+                                                  "qwen1.5-110b"))
+    kimi = configs.get("kimi-k2-1t-a32b")
+    d, f = granite.d_model, granite.d_ff
+    cases = [("decode", 8, d, f, torch.bfloat16, True),
+             ("admission", admission_rows, d, f, torch.bfloat16, True),
+             ("decode", 8, d, f, torch.float32, False),
+             ("yi-34b widths", 4, yi.d_model, yi.d_ff, torch.bfloat16, False),
+             ("qwen1.5-110b widths", 3, qwen.d_model, qwen.d_ff,
+              torch.bfloat16, False),
+             ("kimi-k2 shared expert, decode", 8, kimi.d_model,
+              kimi.moe.n_shared_experts * kimi.moe.d_ff_expert,
+              torch.bfloat16, False)]
+    recs, entries = [], {}
+    for label, T, dm, fm, dtype, timed in cases:
+        key = dtype_key(dtype)
+        wg, wu, wd = mlp_weights(gen, dm, fm, dtype, dev)
+        x = torch.randn((T, dm), generator=gen, device=dev).to(dtype)
+        got = SW.swiglu_mlp(x, wg, wu, wd)
+        err, words = compare(f"swiglu_mlp[{label},{key}]", got,
+                             plain(x, wg, wu, wd), dtype)
+        rec = dict(name="swiglu_mlp", label=label,
+                   shape=f"T={T} d={dm} f={fm} {key}", max_err=err, tol=words)
+        if timed:
+            size = x.element_size()
+            b_ms, by = bound_ms(dtype, T, 1, dm, fm, 2 * T * dm * size)
+            rec.update(ms=time_ms(lambda: SW.swiglu_mlp(x, wg, wu, wd),
+                                  reps=10),
+                       bound_ms=b_ms, bound_by=by,
+                       plain_ms=time_ms(lambda: plain(x, wg, wu, wd), reps=3,
+                                        rounds=3),
+                       library_ms=time_ms(lambda: previous_mlp_apply(
+                           types.SimpleNamespace(wg=wg, wu=wu, wd=wd), x),
+                           reps=20),
+                       library="cuBLAS composition (previous_mlp_apply): "
+                               "torch.mm x2, silu * mul, torch.mm, the "
+                               "model's MLP before this kernel")
+            entries[label] = rec
+        if label == "admission":
+            # one expert of the grouped kernel, and rows alone / in a batch
+            one = grouped_mlp.grouped_swiglu(
+                x, wg[None], wu[None], wd[None],
+                torch.tensor([T], dtype=torch.int32, device=dev))
+            rows = (0, 5, T - 1)
+            alone = [SW.swiglu_mlp(x[i:i + 1], wg, wu, wd) for i in rows]
+            among8 = SW.swiglu_mlp(x[:8].contiguous(), wg, wu, wd)
+            torch.cuda.synchronize()
+            rec["bitwise_vs_grouped_one_group"] = bool(torch.equal(got, one))
+            rec["row_alone_vs_among_all_bitwise"] = all(
+                torch.equal(a[0], got[i]) for a, i in zip(alone, rows))
+            rec["among_8_vs_among_all_bitwise"] = bool(torch.equal(among8,
+                                                                   got[:8]))
+            check(rec["bitwise_vs_grouped_one_group"],
+                  "swiglu_mlp != grouped_swiglu with one group, bitwise")
+            check(rec["row_alone_vs_among_all_bitwise"]
+                  and rec["among_8_vs_among_all_bitwise"],
+                  "swiglu_mlp: a row differs alone and among other rows")
+        recs.append(rec)
+        del wg, wu, wd, x
+        free()
+    return recs, entries
+
+
+def threefry_on_the_card(dev) -> dict:
+    """The sampling noise of a batch of (key, position) pairs on the card
+    against the CPU: threefry bits and uniforms bitwise, the Gumbel noise to
+    2 ulps of max(|g|, 1) (the card's and the CPU's ``log`` may round
+    differently; near g = 0 one ulp of the inner log's argument is many ulps
+    of g)."""
+    from repro_torch.core import threefry as TF
+    out = {}
+    for V in (49152, 151936):
+        keys = TF.fold_in(TF.prng_key(1), torch.tensor([0, 3, 7, 2**31 - 1]))
+        pos = torch.tensor([0, 100, 511, 2**31 - 1])
+        k_cpu = TF.fold_in(keys, pos)
+        k_gpu = TF.fold_in(keys.to(dev), pos.to(dev))
+        bits = torch.equal(k_gpu.cpu(), k_cpu) and torch.equal(
+            TF.random_bits(k_gpu, V).cpu(), TF.random_bits(k_cpu, V))
+        uni = torch.equal(TF.uniform(k_gpu, V, TF.TINY).cpu(),
+                          TF.uniform(k_cpu, V, TF.TINY))
+        g_cpu, g_gpu = TF.gumbel(k_cpu, V), TF.gumbel(k_gpu, V).cpu()
+        ulp = torch.maximum(g_cpu.abs(), torch.ones_like(g_cpu))
+        ulp = (torch.nextafter(ulp, torch.full_like(ulp, float("inf"))) - ulp)
+        gap = float(((g_gpu - g_cpu).abs() / ulp).max())
+        out[f"vocab {V}"] = dict(bits_bitwise=bits, uniform_bitwise=uni,
+                                 gumbel_max_gap_ulps_of_max_abs_g_1=gap,
+                                 gumbel_bitwise=bool(torch.equal(g_gpu, g_cpu)))
+        check(bits and uni, f"threefry on the card differs from the CPU "
+                            f"(vocab {V})")
+        check(gap <= 2.0, f"Gumbel noise on the card {gap} ulps from the CPU's")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the trace and the engine
 # ---------------------------------------------------------------------------
@@ -936,22 +1114,29 @@ def serve(cfg, model, trace, device, **ec_kw):
 
 
 def check_launches(res, n_layers: int, dispatch: str = "gather",
-                   experts: str = "bf16", kv: str = "dense"):
-    """Every kernel's launches in one serve: the gather kernel of the expert
-    form once per decode step and MoE layer; the grouped kernel of the form
-    once per ADMITTED ROW and MoE layer (each row is prefilled alone), plus
-    every decode step under ragged; the flash kernel once per admitted row
-    and layer (the admission's full-sequence attention, dense and paged); the
-    paged kernel of the pool's type once per decode step and layer, where the
-    dense cache's decode runs the bf16 one over a contiguous table; every
-    other kernel never."""
+                   experts: str = "bf16", kv: str = "dense",
+                   family: str = "moe"):
+    """Every kernel's launches in one serve: MoE family, the gather kernel of
+    the expert form once per decode step and MoE layer; the grouped kernel of
+    the form once per ADMITTED ROW and MoE layer (each row is prefilled
+    alone), plus every decode step under ragged. Dense family, the
+    swiglu_mlp kernel once per admitted row and layer plus once per decode
+    step and layer, and no MoE kernel. Both: the flash kernel once per
+    admitted row and layer (the admission's full-sequence attention, dense
+    and paged); the paged kernel of the pool's type once per decode step and
+    layer, where the dense cache's decode runs the bf16 one over a contiguous
+    table; every other kernel never (qwen3-moe has no shared expert, so no
+    swiglu_mlp)."""
     steps = res["n_blocks"] * res["steps_per_block"]
     rows = sum(shape[0] for shape in res["admits"])
     sfx = "_q" if experts == "int8" else ""
-    used = {"grouped_swiglu" + sfx: rows * n_layers + (
-        steps * n_layers if dispatch == "ragged" else 0),
-            "flash_attention": rows * n_layers}
-    if dispatch == "gather":
+    used = {"flash_attention": rows * n_layers}
+    if family == "dense":
+        used["swiglu_mlp"] = (rows + steps) * n_layers
+    else:
+        used["grouped_swiglu" + sfx] = rows * n_layers + (
+            steps * n_layers if dispatch == "ragged" else 0)
+    if family != "dense" and dispatch == "gather":
         used["gather_swiglu" + sfx] = steps * n_layers
     used["paged_attention_q" if kv == "int8" else "paged_attention"] = \
         steps * n_layers
@@ -1199,7 +1384,10 @@ def profile_block(cfg, model, trace, device):
 
 
 def with_dispatch(cfg, name, B):
-    """The MoE dispatch an engine of ``B`` slots serves with."""
+    """The MoE dispatch an engine of ``B`` slots serves with (a dense-family
+    config has none and comes back as it is)."""
+    if cfg.moe is None:
+        return cfg
     return cfg.replace(moe=dataclasses.replace(
         cfg.moe, dispatch=name,
         gather_max_tokens=max(cfg.moe.gather_max_tokens, B)))
@@ -1401,6 +1589,91 @@ def dense_decode_ab(cfg, model, device, lens, pairs: int = 10) -> dict:
     return dict(layers=cfg.n_layers, slots=B, steps=8, **out)
 
 
+def contract_inputs(cfg, device):
+    """Eight prompts of up to 64 tokens, their next tokens, all slots active;
+    and the engine's dispatch for 8 slots."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    B, S = 8, 64
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
+    lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
+    act = torch.ones((B,), dtype=torch.bool, device=device)
+    return with_dispatch(cfg, "gather", B), toks, lengths, tok, act, gen
+
+
+def admission_alone_vs_group(gcfg, model, toks, lengths, device) -> bool:
+    """C1: a prompt's admission logits alone and in a group of four, through
+    the engine's admission step, bitwise."""
+    def admit_first(n):
+        return admitted_cache(gcfg, model, toks[:n], lengths[:n], device)[0][0]
+
+    alone, among = admit_first(1), admit_first(4)
+    torch.cuda.synchronize()
+    admit_invariant = bool(torch.equal(alone, among))
+    check(admit_invariant, "contracts: a prompt's admission logits differ "
+                           "alone and in a group of four")
+    return admit_invariant
+
+
+def fused_vs_stepwise(gcfg, model, fresh, tok, act, K: int = 4) -> bool:
+    """K fused decode steps against the same K steps driven one at a time
+    through the engine's single step: the logits of every step, bitwise."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    B = tok.shape[0]
+    seen = []
+    real = MD.decode_step_slots
+
+    def tap(*a, **kw):
+        logits, cache = real(*a, **kw)
+        seen.append(logits.clone())
+        return logits, cache
+
+    rem = torch.full((B,), 100, dtype=torch.int32, device=tok.device)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=tok.device)
+    MD.decode_step_slots = tap
+    try:
+        block, _, _ = ST.make_slot_decode_multi(gcfg, K)(model, fresh(), tok, act,
+                                                         rem, eos)
+        fused = list(seen)
+        seen.clear()
+        cache, t = fresh(), tok
+        step = ST.make_slot_decode(gcfg)
+        for _ in range(K):
+            _, aux, cache = step(model, cache, t, act)
+            t = aux[:, 0]
+        stepwise = list(seen)
+    finally:
+        MD.decode_step_slots = real
+    torch.cuda.synchronize()
+    fused_step = all(torch.equal(a, b) for a, b in zip(fused, stepwise))
+    check(len(fused) == K and len(stepwise) == K, "contracts: step count")
+    check(bool((block[:, :, 2] == 1).all()), "contracts: finite lane")
+    check(fused_step, "contracts: fused K steps != K single steps on logits")
+    return fused_step
+
+
+def paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg, device) -> dict:
+    """C3: the paged pool against the dense cache, admission and one decode
+    step (``lg``: the dense cache's decode logits): one kernel over the same
+    rows in the same blocks, bitwise."""
+    from repro_torch.models import model as MD
+    la_d, _ = admitted_cache(gcfg, model, toks, lengths, device)
+    la_p, pc = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
+    lp, _ = MD.decode_step_slots(gcfg, model, pc, tok, act)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(la_p, la_d)),
+          "contracts: paged admission logits != dense, bitwise")
+    check(bool(torch.equal(lp, lg)),
+          f"contracts: paged decode logits != dense, bitwise (max gap "
+          f"{float((lp - lg).abs().max())})")
+    return dict(admission_logits_max_abs_gap=float((la_p - la_d).abs().max()),
+                decode_logits_max_abs_gap=float((lp - lg).abs().max()),
+                decode_logits_bitwise=bool(torch.equal(lp, lg)),
+                decode_argmax_equal_share=float(
+                    (lp.argmax(-1) == lg.argmax(-1)).float().mean()))
+
+
 def contracts(cfg, model, device, lens):
     """On one cache state: logits of a decode step under gather and under
     ragged dispatch, and of K fused steps against the same K steps driven one
@@ -1413,17 +1686,12 @@ def contracts(cfg, model, device, lens):
     attention, timed in alternating pairs."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as MD
-    gen = torch.Generator(device=device).manual_seed(3)
-    B, S = 8, 64
-    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
-    lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
-    gcfg = with_dispatch(cfg, "gather", B)
+    gcfg, toks, lengths, tok, act, gen = contract_inputs(cfg, device)
+    B = toks.shape[0]
 
     def fresh():
         return admitted_cache(gcfg, model, toks, lengths, device)[1]
 
-    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
-    act = torch.ones((B,), dtype=torch.bool, device=device)
     lg, _ = MD.decode_step_slots(gcfg, model, fresh(), tok, act)
     lr, _ = MD.decode_step_slots(with_dispatch(cfg, "ragged", B), model, fresh(),
                                  tok, act)
@@ -1432,14 +1700,8 @@ def contracts(cfg, model, device, lens):
     check(gather_ragged, "contracts: gather != ragged on decode logits")
 
     # ---- C1: admission alone and in a group of four, the engine's step
-    def admit_first(n):
-        return admitted_cache(gcfg, model, toks[:n], lengths[:n], device)[0][0]
-
-    alone, among = admit_first(1), admit_first(4)
-    torch.cuda.synchronize()
-    admit_invariant = bool(torch.equal(alone, among))
-    check(admit_invariant, "contracts: a prompt's admission logits differ "
-                           "alone and in a group of four")
+    admit_invariant = admission_alone_vs_group(gcfg, model, toks, lengths,
+                                               device)
     # the batched prefill that admission ran before: not batch-invariant
     b_alone, _, _ = MD.prefill_slots(gcfg, model, toks[:1], lengths[:1])
     b_among, _, _ = MD.prefill_slots(gcfg, model, toks[:4], lengths[:4])
@@ -1461,49 +1723,8 @@ def contracts(cfg, model, device, lens):
     del cache4
     free()
 
-    # ---- fused K steps against K single steps
-    K = 4
-    seen = []
-    real = MD.decode_step_slots
-
-    def tap(*a, **kw):
-        logits, cache = real(*a, **kw)
-        seen.append(logits.clone())
-        return logits, cache
-
-    rem = torch.full((B,), 100, dtype=torch.int32, device=device)
-    eos = torch.full((B,), -1, dtype=torch.int32, device=device)
-    MD.decode_step_slots = tap
-    try:
-        block, _, _ = ST.make_slot_decode_multi(gcfg, K)(model, fresh(), tok, act,
-                                                         rem, eos)
-        fused = list(seen)
-        seen.clear()
-        cache, t = fresh(), tok
-        step = ST.make_slot_decode(gcfg)
-        for _ in range(K):
-            _, aux, cache = step(model, cache, t, act)
-            t = aux[:, 0]
-        stepwise = list(seen)
-    finally:
-        MD.decode_step_slots = real
-    torch.cuda.synchronize()
-    fused_step = all(torch.equal(a, b) for a, b in zip(fused, stepwise))
-    check(len(fused) == K and len(stepwise) == K, "contracts: step count")
-    check(bool((block[:, :, 2] == 1).all()), "contracts: finite lane")
-    check(fused_step, "contracts: fused K steps != K single steps on logits")
-
-    # ---- C3: the paged pool against the dense cache, admission and one
-    # decode step: one kernel over the same rows in the same blocks
-    la_d, _ = admitted_cache(gcfg, model, toks, lengths, device)
-    la_p, pc = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
-    lp, _ = MD.decode_step_slots(gcfg, model, pc, tok, act)
-    torch.cuda.synchronize()
-    check(bool(torch.equal(la_p, la_d)),
-          "contracts: paged admission logits != dense, bitwise")
-    check(bool(torch.equal(lp, lg)),
-          f"contracts: paged decode logits != dense, bitwise (max gap "
-          f"{float((lp - lg).abs().max())})")
+    fused_step = fused_vs_stepwise(gcfg, model, fresh, tok, act)
+    paged = paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg, device)
     hit = prefix_hit(gcfg, model, device)
     decode_ab = dense_decode_ab(cfg, model, device, lens)
     return dict(gather_vs_ragged_logits_bitwise=gather_ragged,
@@ -1512,15 +1733,86 @@ def contracts(cfg, model, device, lens):
                 batched_prefill_alone_vs_in_batch_max_abs_gap=batched_gap,
                 admission_group_of_4x256_ms=dict(batch_invariant=per_row_ms,
                                                  batched_prefill=batched_ms),
-                paged_vs_dense=dict(
-                    admission_logits_max_abs_gap=float(
-                        (la_p - la_d).abs().max()),
-                    decode_logits_max_abs_gap=float((lp - lg).abs().max()),
-                    decode_logits_bitwise=bool(torch.equal(lp, lg)),
-                    decode_argmax_equal_share=float(
-                        (lp.argmax(-1) == lg.argmax(-1)).float().mean())),
+                paged_vs_dense=paged,
                 prefix_hit_vs_whole_prompt=hit,
                 dense_decode_block_ms=decode_ab)
+
+
+def mlp_logit_gap(cfg, model, toks, lengths, tok, act, device) -> dict:
+    """Admission and decode logits with the model's MLP through the
+    swiglu_mlp kernel (g and u fp32) against the cuBLAS MLP it replaced (g
+    and u rounded to bf16): a reading of what the kernel's contract changes,
+    not a fault."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as MD
+    out = {}
+    port = L.mlp_apply
+    for name, mlp in (("kernel", port),
+                      ("previous_cublas", previous_mlp_apply)):
+        L.mlp_apply = mlp
+        try:
+            la, cache = admitted_cache(cfg, model, toks, lengths, device)
+            ld, _ = MD.decode_step_slots(cfg, model, cache, tok, act)
+        finally:
+            L.mlp_apply = port
+        out[name] = (la, ld)
+    torch.cuda.synchronize()
+    res = {}
+    for i, what in enumerate(("admission", "decode")):
+        a, b = out["kernel"][i], out["previous_cublas"][i]
+        res[what] = dict(max_abs_gap=float((a - b).abs().max()),
+                         max_abs_logit=float(b.abs().max()),
+                         argmax_equal_share=float(
+                             (a.argmax(-1) == b.argmax(-1)).float().mean()),
+                         rows=int(a.shape[0]))
+    del out
+    free()
+    return res
+
+
+def sampled_block_sizes(cfg, model, trace, device) -> dict:
+    """At temperature > 0, decode_block=8 and decode_block=1 on a short
+    staggered trace: token for token (the noise is indexed by the token's
+    position, and every prompt is admitted alone). The greedy streams differ
+    from the sampled ones."""
+    reqs = [dict(r, max_new_tokens=16) for r in trace[:4]]
+    runs = {K: serve(cfg, model, reqs, device, temperature=TEMPERATURE,
+                     decode_block=K) for K in (8, 1)}
+    greedy = serve(cfg, model, reqs, device)
+    equal = runs[8]["tokens"] == runs[1]["tokens"]
+    check(equal, f"temperature {TEMPERATURE}: decode_block=8 gives other "
+                 f"tokens than decode_block=1 "
+                 f"({top1(runs[8]['tokens'], runs[1]['tokens'])} agree)")
+    return dict(temperature=TEMPERATURE, requests=len(reqs),
+                decode_block_8_vs_1_token_equal=equal,
+                share_equal_to_greedy=top1(runs[8]["tokens"],
+                                           greedy["tokens"]))
+
+
+def contracts_dense(cfg, model, device, trace) -> dict:
+    """The dense family at full width and depth: fused K == stepwise and a
+    prompt alone == in a group of four on logits, paged == dense on
+    admission and decode logits, bitwise; the logit gap of the kernel's MLP
+    against the cuBLAS MLP it replaced; decode_block=8 == 1 token for token
+    at temperature > 0."""
+    from repro_torch.models import model as MD
+    gcfg, toks, lengths, tok, act, _ = contract_inputs(cfg, device)
+
+    def fresh():
+        return admitted_cache(gcfg, model, toks, lengths, device)[1]
+
+    lg, _ = MD.decode_step_slots(gcfg, model, fresh(), tok, act)
+    check(bool(torch.isfinite(lg).all()), "dense contracts: non-finite logits")
+    return dict(
+        fused_vs_stepwise_logits_bitwise=fused_vs_stepwise(gcfg, model, fresh,
+                                                           tok, act),
+        prefill_alone_vs_in_batch_logits_bitwise=admission_alone_vs_group(
+            gcfg, model, toks, lengths, device),
+        paged_vs_dense=paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg,
+                                      device),
+        mlp_kernel_vs_previous_cublas_logits=mlp_logit_gap(
+            gcfg, model, toks, lengths, tok, act, device),
+        sampled=sampled_block_sizes(gcfg, model, trace, device))
 
 
 def contracts_int8(cfg, model, device):
@@ -1547,21 +1839,18 @@ def contracts_int8(cfg, model, device):
 
 # ---------------------------------------------------------------------------
 
-def rehearse(args, full_cfg, device):
-    """The reduced fp32 config served on the card and on the CPU in every
-    form, token for token. Returns the dense run on the card (its admission
-    shapes size the kernel phase)."""
+def rehearse_config(args, small, forms, family: str, device) -> dict:
+    """One reduced fp32 config served on the card and on the CPU in every
+    form of ``forms`` ((name, engine keywords, expert tables, KV type)), token
+    for token, with the card's launches checked. Returns the card's run of
+    each form."""
     from repro_torch.models import model as MD
-    small = full_cfg.reduced().replace(dtype="float32")
     trace = make_trace(small.vocab_size, args.seed)
     cpu_model = MD.init(small, "cpu", seed=args.seed)
     gpu_model = MD.init(small, device, seed=args.seed)
     gpu_model.load_state_dict(cpu_model.state_dict())
     zero = {name: 0 for name in TABLE}
     out = {}
-    forms = (("dense", {}, "bf16", "dense"), ("paged", PAGED, "bf16", "bf16"),
-             ("paged_int8kv", PAGED_INT8, "bf16", "int8"),
-             ("int8_experts", {}, "int8", "dense"))
     for form, kw, experts, kv in forms:
         if form == "int8_experts":
             quantize(cpu_model)
@@ -1572,11 +1861,12 @@ def rehearse(args, full_cfg, device):
                                                "card differ from the CPU's")
         on_cpu = serve(small, cpu_model, trace, "cpu", **kw)
         on_gpu = serve(small, gpu_model, trace, device, **kw)
-        check_launches(on_gpu, small.n_layers, experts=experts, kv=kv)
+        check_launches(on_gpu, small.n_layers, experts=experts, kv=kv,
+                       family=family)
         check(on_cpu["launches"] == zero, "the CPU path launched a kernel")
         check(on_gpu["tokens"] == on_cpu["tokens"],
-              f"reduced fp32 model, {form}: tokens on the card differ from "
-              f"the CPU's")
+              f"reduced fp32 {small.name}, {form}: tokens on the card differ "
+              f"from the CPU's")
         check(on_gpu["admits"] == on_cpu["admits"], "admission shapes differ")
         check(on_gpu["paging_stats"] == on_cpu["paging_stats"],
               f"{form}: paging stats differ")
@@ -1585,19 +1875,47 @@ def rehearse(args, full_cfg, device):
                   f"{form}: no prefix hit on the shared-prefix trace")
         out[form] = on_gpu
     check(out["paged"]["tokens"] == out["dense"]["tokens"],
-          "reduced fp32 model on the card: paged tokens differ from dense")
-    dense = out["dense"]
-    largest = max(dense["admits"], key=lambda s: s[1])
-    emit("rehearse", config=small.name, forms=[f[0] for f in forms],
-         token_equal_card_vs_cpu=True, paged_equal_dense_on_card=True,
-         requests=len(trace), admissions=dense["admits"],
-         largest_bucket=largest[1],
-         grouped_rows_at_full_width=largest[1] * full_cfg.moe.top_k,
-         paging_stats={f: out[f]["paging_stats"] for f in ("paged",
-                                                           "paged_int8kv")},
-         launches={f: out[f]["launches"] for f in out})
+          f"reduced fp32 {small.name} on the card: paged tokens differ from "
+          f"dense")
+    check(out["sampled"]["tokens"] != out["dense"]["tokens"],
+          f"reduced fp32 {small.name}: the sampled streams equal the greedy "
+          f"ones")
     del cpu_model, gpu_model
     free()
+    return out
+
+
+def rehearse(args, full_cfg, dense_cfg, device):
+    """The reduced fp32 configs served on the card and on the CPU in every
+    form, token for token: qwen3-moe greedy in four forms and sampled at
+    TEMPERATURE, granite-8b greedy in three and sampled. Returns qwen3-moe's
+    dense run on the card (its admission shapes size the kernel phase)."""
+    sampled = ("sampled", dict(temperature=TEMPERATURE), "bf16", "dense")
+    moe_forms = (("dense", {}, "bf16", "dense"),
+                 ("paged", PAGED, "bf16", "bf16"),
+                 ("paged_int8kv", PAGED_INT8, "bf16", "int8"), sampled,
+                 ("int8_experts", {}, "int8", "dense"))
+    small = full_cfg.reduced().replace(dtype="float32")
+    out = rehearse_config(args, small, moe_forms, "moe", device)
+    dense_small = dense_cfg.reduced().replace(dtype="float32")
+    out_dense = rehearse_config(args, dense_small, moe_forms[:4], "dense",
+                                device)
+    dense = out["dense"]
+    largest = max(dense["admits"], key=lambda s: s[1])
+    emit("rehearse", configs=[small.name, dense_small.name],
+         forms={small.name: [f[0] for f in moe_forms],
+                dense_small.name: [f[0] for f in moe_forms[:4]]},
+         temperature_of_sampled_forms=TEMPERATURE,
+         token_equal_card_vs_cpu=True, paged_equal_dense_on_card=True,
+         requests=len(dense["tokens"]), admissions=dense["admits"],
+         largest_bucket=largest[1],
+         grouped_rows_at_full_width=largest[1] * full_cfg.moe.top_k,
+         paging_stats={f"{c.name} {f}": o[f]["paging_stats"]
+                       for c, o in ((small, out), (dense_small, out_dense))
+                       for f in ("paged", "paged_int8kv")},
+         launches={f"{c.name} {f}": r["launches"]
+                   for c, o in ((small, out), (dense_small, out_dense))
+                   for f, r in o.items()})
     return dense, largest[1] * full_cfg.moe.top_k
 
 
@@ -1777,8 +2095,9 @@ def main(argv=None) -> int:
                     help="depth of the decode_block=1 / ragged comparison runs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one decode block of the uncompressed model "
-                         "with torch.profiler and print where its time goes")
+                    help="also trace one decode block of the uncompressed "
+                         "MoE model and of the dense model with torch.profiler "
+                         "and print where its time goes")
     ap.add_argument("--witness-layers", type=int, default=0,
                     help="also read the paged int8 pool's top-1 against the "
                          "bf16 pool at full width and this depth on the card "
@@ -1812,10 +2131,16 @@ def main(argv=None) -> int:
            full_cfg.moe.n_experts, full_cfg.moe.top_k, full_cfg.moe.d_ff_expert,
            full_cfg.vocab_size) == (2048, 32, 4, 128, 128, 8, 768, 151936),
           "qwen3-moe-30b-a3b widths changed")
+    dense_cfg = configs.get(DENSE)
+    check((dense_cfg.family, dense_cfg.d_model, dense_cfg.n_heads,
+           dense_cfg.n_kv_heads, dense_cfg.hd, dense_cfg.d_ff,
+           dense_cfg.vocab_size, dense_cfg.n_layers)
+          == ("dense", 4096, 32, 8, 128, 14336, 49152, 36),
+          "granite-8b widths changed")
 
-    # ---- rehearse: reduced config, card vs CPU, every form
+    # ---- rehearse: reduced configs, card vs CPU, every form
     t0 = time.perf_counter()
-    small_dense, admission_rows = rehearse(args, full_cfg, device)
+    small_dense, admission_rows = rehearse(args, full_cfg, dense_cfg, device)
     reduced_top1 = quality(args, full_cfg, device)
     t_rehearse = time.perf_counter() - t0
 
@@ -1831,9 +2156,19 @@ def main(argv=None) -> int:
          ("capture", CALIB_BATCH, CALIB_SEQ)])
     checks.extend(flash)
     entries["flash_attention"] = flash[0]
+    swiglu, swiglu_timed = swiglu_main_shapes(
+        device, admission_rows // full_cfg.moe.top_k)
+    checks.extend(swiglu)
+    # the main entry is the decode shape (most launches); the admission
+    # shape's numbers ride along
+    entries["swiglu_mlp"] = dict(swiglu_timed["decode"], admission={
+        k: swiglu_timed["admission"][k] for k in (
+            "shape", "max_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")})
     emit("kernels", cases_passed=n_cases, worst_abs_err_case_list=worst,
          quantize_card_equals_cpu_bitwise=quant_bitwise,
-         flash_attention_rows_invariant_bitwise=invariance, card=card,
+         flash_attention_rows_invariant_bitwise=invariance,
+         threefry_card_vs_cpu=threefry_on_the_card(device), card=card,
          checks=checks)
     t_kernels = time.perf_counter() - t0
 
@@ -1846,8 +2181,10 @@ def main(argv=None) -> int:
          **contracts(cfg, model, device, decode_lens(trace)))
     total_launches = {name: 0 for name in TABLE}
 
-    def record(res, form, mcfg, n_weights, experts="bf16", kv="dense", **extra):
-        check_launches(res, mcfg.n_layers, experts=experts, kv=kv)
+    def record(res, form, mcfg, n_weights, experts="bf16", kv="dense",
+               family="moe", **extra):
+        check_launches(res, mcfg.n_layers, experts=experts, kv=kv,
+                       family=family)
         for name in total_launches:
             total_launches[name] += res["launches"][name]
         emit("serve", model=mcfg.name, form=form, layers=mcfg.n_layers,
@@ -1864,7 +2201,8 @@ def main(argv=None) -> int:
                            if numerics.mm_out_dtype_available()
                            else "bf16 product widened to fp32"))
     if args.profile:
-        emit("profile", card=card, **profile_block(cfg, model, trace, device))
+        emit("profile", model=cfg.name, card=card,
+             **profile_block(cfg, model, trace, device))
     pred = {"dense": teacher_forced(cfg, model, trace, dense["tokens"], device)}
     for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
                          ("paged int8 KV", PAGED_INT8, "int8")):
@@ -1939,6 +2277,43 @@ def main(argv=None) -> int:
                          teacher_forced_top1_vs_dense=full_width))
     t_serve = time.perf_counter() - t0
 
+    # ---- dense: granite-8b at its published widths and full depth, bf16
+    t0 = time.perf_counter()
+    model, build_s = build_model(dense_cfg, device, args.seed)
+    dtrace = make_trace(dense_cfg.vocab_size, args.seed)
+    emit("contracts", model=dense_cfg.name, layers=dense_cfg.n_layers,
+         **contracts_dense(dense_cfg, model, device, dtrace))
+    d_gb = weights_gb(model)
+    serve(dense_cfg, model, dtrace[:2], device)         # warm the libraries up
+    d_dense = serve(dense_cfg, model, dtrace, device)
+    record(d_dense, "dense cache", dense_cfg, d_gb, family="dense",
+           init_s=build_s)
+    if args.profile:
+        emit("profile", model=dense_cfg.name, card=card,
+             **profile_block(dense_cfg, model, dtrace, device))
+    for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
+                         ("paged int8 KV", PAGED_INT8, "int8")):
+        res = serve(dense_cfg, model, dtrace, device, **kw)
+        check(res["paging_stats"]["prefix_hits"] > 0,
+              f"{dense_cfg.name}, {form}: no prefix hit on the shared-prefix "
+              f"trace")
+        if kv == "bf16":
+            check(res["tokens"] == d_dense["tokens"],
+                  f"{dense_cfg.name}, paged bf16 KV: tokens differ from the "
+                  f"dense cache's ({top1(res['tokens'], d_dense['tokens'])} "
+                  f"agree)")
+        record(res, form, dense_cfg, d_gb, kv=kv, family="dense",
+               free_running_agreement_with_dense=top1(res["tokens"],
+                                                      d_dense["tokens"]))
+    res = serve(dense_cfg, model, dtrace, device, temperature=TEMPERATURE)
+    record(res, f"dense cache, temperature {TEMPERATURE}", dense_cfg, d_gb,
+           family="dense",
+           share_of_tokens_equal_to_greedy=top1(res["tokens"],
+                                                d_dense["tokens"]))
+    del model
+    free()
+    t_dense = time.perf_counter() - t0
+
     # ---- compression: MergeMoE at full width, then the merged model served
     t0 = time.perf_counter()
     for name, n in compress_phase(args, full_cfg, device, card, trace).items():
@@ -2004,11 +2379,13 @@ def main(argv=None) -> int:
             replaces=meta["replaces"], launches=total_launches[name],
             max_abs_err=rec["max_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec.get("library_ms"), shape=rec["shape"]))
+            library_ms=rec.get("library_ms"), shape=rec["shape"],
+            **({"admission": rec["admission"]} if "admission" in rec
+               else {})))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
-        rehearse=t_rehearse, kernels=t_kernels, serve=t_serve,
+        rehearse=t_rehearse, kernels=t_kernels, serve=t_serve, dense=t_dense,
         compress=t_compress, variants=t_variants,
         total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)

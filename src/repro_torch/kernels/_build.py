@@ -20,7 +20,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES = ("gather_swiglu", "grouped_swiglu", "gather_swiglu_q",
                   "grouped_swiglu_q", "paged_attention", "paged_attention_q",
-                  "flash_attention")
+                  "flash_attention", "swiglu_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,6 +1,7 @@
 // Per-expert SwiGLU for MoE layers on Hopper (sm_90a): the arithmetic shared by
-// gather_swiglu.cu / gather_swiglu_q.cu (decode) and grouped_swiglu.cu /
-// grouped_swiglu_q.cu (admission / ragged).
+// gather_swiglu.cu / gather_swiglu_q.cu (decode), grouped_swiglu.cu /
+// grouped_swiglu_q.cu (admission / ragged) and swiglu_mlp.cu (the dense MLP,
+// one expert).
 //
 // Every output element is produced by ONE thread that walks its reduction
 // axis in index order with fp32 fmaf:
@@ -159,22 +160,27 @@ struct SegmentLayout {
   __device__ int x_row(int row) const { return row; }
 };
 
-// acc[n][r][q] = sum_{i<depth} rows[r][i] * table_n[i][c + q], i ascending.
-// `rows` is shared memory [R][depth] fp32; table_n is [depth][ncols] in Wt;
-// s0/s1 are the tables' scale rows [ncols] (int8 only, else unused).
-template <typename Wt, int R, int W, int NTAB>
-__device__ __forceinline__ void rows_dot_columns(const float* rows, int depth,
-                                                 const Wt* t0, const Wt* t1,
-                                                 const float* s0,
-                                                 const float* s1, int ncols,
-                                                 int c,
-                                                 float (&acc)[NTAB][R][W]) {
+template <int R, int W, int NTAB>
+__device__ __forceinline__ void zero_acc(float (&acc)[NTAB][R][W]) {
 #pragma unroll
   for (int n = 0; n < NTAB; ++n)
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int q = 0; q < W; ++q) acc[n][r][q] = 0.0f;
+}
+
+// acc[n][r][q] += sum_{i<depth} rows[r * stride + i] * table_n[i][c + q], i
+// ascending, one fmaf each. `rows` is shared memory holding R rows of fp32
+// `stride` apart; table_n is [depth][ncols] in Wt; s0/s1 are the tables'
+// scale rows [ncols] (int8 only, else unused). Walking a reduction axis in
+// consecutive pieces through this function gives the same bits as walking it
+// in one call: the fmaf chain is the same.
+template <typename Wt, int R, int W, int NTAB>
+__device__ __forceinline__ void rows_dot_columns_acc(
+    const float* rows, int stride, int depth, const Wt* t0, const Wt* t1,
+    const float* s0, const float* s1, int ncols, int c,
+    float (&acc)[NTAB][R][W]) {
   float sc[NTAB][W];
 #pragma unroll
   for (int n = 0; n < NTAB; ++n)
@@ -197,13 +203,27 @@ __device__ __forceinline__ void rows_dot_columns(const float* rows, int depth,
                                    a[NTAB - 1]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float xv = rows[r * depth + i];
+      const float xv = rows[r * stride + i];
 #pragma unroll
       for (int n = 0; n < NTAB; ++n)
 #pragma unroll
         for (int q = 0; q < W; ++q) acc[n][r][q] = fmaf(xv, a[n][q], acc[n][r][q]);
     }
   }
+}
+
+// acc[n][r][q] = sum_{i<depth} rows[r][i] * table_n[i][c + q], i ascending.
+// `rows` is shared memory [R][depth] fp32.
+template <typename Wt, int R, int W, int NTAB>
+__device__ __forceinline__ void rows_dot_columns(const float* rows, int depth,
+                                                 const Wt* t0, const Wt* t1,
+                                                 const float* s0,
+                                                 const float* s1, int ncols,
+                                                 int c,
+                                                 float (&acc)[NTAB][R][W]) {
+  zero_acc<R, W, NTAB>(acc);
+  rows_dot_columns_acc<Wt, R, W, NTAB>(rows, depth, depth, t0, t1, s0, s1,
+                                       ncols, c, acc);
 }
 
 __device__ __forceinline__ float silu_mul(float g, float u) {

@@ -6,7 +6,9 @@ and no fallback that reroutes a CUDA tensor to the plain version. The model's
 full-sequence attention (``layers._attend``) calls the flash kernel's
 ``attend`` itself, on the unexpanded heads: on the CPU it runs the
 reference's model arithmetic (``_sdpa``), which the reference's model runs
-too, rather than the flash oracle.
+too, rather than the flash oracle. Likewise the model's MLP
+(``layers.mlp_apply``) calls the ``swiglu_mlp`` kernel's ``mlp`` on a CUDA
+tensor and the reference's model arithmetic on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -15,12 +17,21 @@ import torch
 from repro_torch.kernels import decode_moe, grouped_mlp, paged_attention as PA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from repro_torch.kernels import swiglu as SW
 
 #: every hand-written kernel by public name (``_common.Kernel``: ``name``,
 #: ``plain`` and the launch count ``LAUNCHES``)
 KERNELS = {k.name: k for k in (decode_moe.GATHER, grouped_mlp.GROUPED,
                                decode_moe.GATHER_Q, grouped_mlp.GROUPED_Q,
-                               PA.PAGED, PA.PAGED_Q, FA.FLASH)}
+                               PA.PAGED, PA.PAGED_Q, FA.FLASH,
+                               SW.SWIGLU)}
+
+
+def swiglu_mlp(x: torch.Tensor, wg, wu, wd) -> torch.Tensor:
+    """The dense SwiGLU MLP, x: ``[T, d]``."""
+    if x.is_cuda:
+        return SW.swiglu_mlp(x, wg, wu, wd)
+    return ref.swiglu_mlp(x, wg, wu, wd)
 
 
 def gather_swiglu(x: torch.Tensor, wg, wu, wd, idx, w) -> torch.Tensor:

@@ -6,10 +6,12 @@ engine.
     python -m repro_torch.launch.serve --full-width --layers 24
     python -m repro_torch.launch.serve --kv-layout paged --kv-dtype int8
     python -m repro_torch.launch.serve --int8-experts
+    python -m repro_torch.launch.serve --arch granite-8b --full-width --s-max 512
 
 ``--full-width`` serves the published widths of ``--arch`` with random
-weights (``--layers`` cuts the depth so the model fits the card). The
-fixed-batch server of the reference needs the non-slot model API and is not
+weights (``--layers`` cuts the depth so the model fits the card; a dense
+config such as granite-8b fits at its full depth and needs no MoE flag).
+The fixed-batch server of the reference needs the non-slot model API and is not
 ported yet.
 """
 from __future__ import annotations
@@ -46,7 +48,8 @@ def main(argv=None):
     ap.add_argument("--kv-block", type=int, default=16,
                     help="rows per paged block")
     ap.add_argument("--int8-experts", action="store_true",
-                    help="quantize the expert tables to int8 before serving")
+                    help="quantize the expert tables to int8 before serving "
+                         "(MoE configs)")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch)

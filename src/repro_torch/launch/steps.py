@@ -8,10 +8,11 @@ injection ``poison`` argument of the reference's decode steps is not ported
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import threefry as TF
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 
@@ -35,33 +36,51 @@ def admit_pad_shapes(buckets, s_max: int) -> Tuple[int, ...]:
     return tuple(sorted(shapes))
 
 
-def _require_greedy(temperature: float) -> None:
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling at temperature > 0 is not ported yet (it needs the "
-            "reference's threefry fold_in / gumbel key schedule)")
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  keys: Optional[torch.Tensor] = None,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row of ``logits`` [B, V] -> [B] int32, the reference's
+    rule. ``temperature <= 0``: greedy argmax (keys and positions unused).
+    ``temperature > 0``: Gumbel-max under the reference's position-indexed
+    key schedule, ``argmax(logits / T + gumbel(fold_in(keys[b],
+    positions[b])))`` on JAX's threefry (:mod:`repro_torch.core.threefry`),
+    where ``positions[b]`` is the sequence position the sampled token will
+    occupy. The noise depends on (key, position) only, so every program that
+    samples a position (admission, the step loop, the fused block) draws the
+    same. keys: ``[B, 2]`` 32-bit words in int64 (per-slot request keys);
+    positions: ``[B]``. Runs on the logits' device. The division is by a
+    tensor: on CUDA, PyTorch divides by a Python scalar by multiplying with
+    its reciprocal, which rounds otherwise than the reference."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if keys is None or positions is None:
+        raise ValueError("sampling at temperature > 0 needs per-row keys and "
+                         "positions")
+    dev = logits.device
+    noise = TF.gumbel(TF.fold_in(keys.to(dev, torch.int64),
+                                 positions.to(dev, torch.int64)),
+                      logits.shape[-1])
+    lf = logits.to(F32)
+    return torch.argmax(lf / torch.full_like(lf, temperature) + noise,
+                        dim=-1).to(torch.int32)
 
 
-def sample_tokens(logits: torch.Tensor, temperature: float, keys=None,
-                  positions=None) -> torch.Tensor:
-    """One token per row of ``logits`` [B, V] -> [B] int32. Greedy only:
-    ``temperature > 0`` needs the reference's position-indexed threefry
-    Gumbel noise to reproduce its sampled streams and is not ported yet."""
-    _require_greedy(temperature)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
-
-
-def make_slot_decode(cfg: ModelConfig) -> Callable:
-    """slot_decode(model, cache, token [B], active [B]) -> (logits [B, V],
-    aux [B, 2] int32, cache) with ``aux[b] = (greedy, finite)``: the greedy
-    argmax and the numeric-health flag (all logits finite) packed into one
-    tensor, so a greedy engine reads back once per step."""
+def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
+    """slot_decode(model, cache, token [B], active [B], keys [B, 2] = None)
+    -> (logits [B, V], aux [B, 2] int32, cache) with ``aux[b] = (token,
+    finite)``: the sampled token (:func:`sample_tokens` at
+    ``cache["pos"]`` after the step, the position it will occupy; the greedy
+    argmax at ``temperature <= 0``, where ``keys`` may be None) and the
+    numeric-health flag (all logits finite) packed into one tensor, so the
+    engine reads back once per step at any temperature. The reference's step
+    returns the greedy argmax here and samples at T > 0 from the logits on
+    the host."""
     @torch.inference_mode()
-    def slot_decode(model, cache, token, active):
+    def slot_decode(model, cache, token, active, keys=None):
         logits, cache = MD.decode_step_slots(cfg, model, cache, token, active)
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = sample_tokens(logits, temperature, keys, cache["pos"])
         finite = torch.isfinite(logits).all(dim=-1).to(torch.int32)
-        return logits, torch.stack([greedy, finite], dim=-1), cache
+        return logits, torch.stack([tok, finite], dim=-1), cache
     return slot_decode
 
 
@@ -130,22 +149,24 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
     """Fused K-step decode: K eager steps with NO host read between them.
 
     slot_decode_multi(model, cache, token [B], active [B], remaining [B],
-    eos [B]) -> (block [K, B, 3] int32, active [B] bool, cache), where
+    eos [B], keys [B, 2] = None) -> (block [K, B, 3] int32, active [B] bool,
+    cache), where
     ``block[s, b] = (token, emitted, finite)``: tokens, their emitted flags
     and the numeric-health lane packed into one tensor, so the engine reads
     back once per block.
 
-    Sampling and the per-slot stop flags stay on the device: a slot whose
-    sampled token hits its ``eos`` entry (-1 = none) or exhausts
+    Sampling (:func:`sample_tokens` at ``cache["pos"]`` after each step,
+    the position the token will occupy; ``keys`` may be None at
+    ``temperature <= 0``) and the per-slot stop flags stay on the device: a
+    slot whose sampled token hits its ``eos`` entry (-1 = none) or exhausts
     ``remaining`` stops advancing ``pos`` and stops emitting, but rides along
     in the batch. The reference skips the forward for the tail of a block in
     which every slot is frozen; deciding that needs a host read, so here the
     K steps always run. Frozen slots emit nothing, so the tokens are the
     same."""
-    _require_greedy(temperature)
-
     @torch.inference_mode()
-    def slot_decode_multi(model, cache, token, active, remaining, eos):
+    def slot_decode_multi(model, cache, token, active, remaining, eos,
+                          keys=None):
         B = token.shape[0]
         block = torch.empty((k_steps, B, 3), dtype=torch.int32,
                             device=token.device)
@@ -153,7 +174,8 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
         for s in range(k_steps):
             logits, cache = MD.decode_step_slots(cfg, model, cache, tok, act)
             finite = torch.isfinite(logits).all(dim=-1)
-            nxt = sample_tokens(logits, temperature)
+            # frozen rows sample garbage that is never emitted
+            nxt = sample_tokens(logits, temperature, keys, cache["pos"])
             emitted = act
             rem = rem - act.to(rem.dtype)
             done = (nxt == eos) | (rem <= 0)

@@ -41,7 +41,7 @@
 ``EngineConfig`` keeps every field of the reference's. The values this port
 does not serve yet RAISE ``NotImplementedError`` at construction, never
 silently degrade: ``spec_draft`` (or a draft model), ``mesh``,
-``temperature > 0``, ``snapshot_every_steps > 0``, a fault plan, and
+``snapshot_every_steps > 0``, a fault plan, and
 ``trace_guard`` other than ``"off"`` (there is no jit whose retraces a guard
 could count, so the port's default is ``"off"``; the reference's is
 ``"count"``). With ``numeric_sentinel != "off"`` a non-finite logit row raises
@@ -49,6 +49,19 @@ could count, so the port's default is ``"off"``; the reference's is
 
 The clock is pluggable: ``clock='steps'`` interprets ``arrival_time`` in
 decode-step units (deterministic), ``clock='wall'`` in seconds.
+
+Sampling keys, as the reference's: every request gets the key
+``fold_in(PRNGKey(seed + 1), uid)`` (JAX's threefry,
+:mod:`repro_torch.core.threefry`) at admission, and each token draws Gumbel
+noise indexed by the sequence position it will occupy
+(``steps.sample_tokens``): the first token at ``pos0 + length`` from the
+admission's logits, decode tokens at the post-step ``pos``. So at any
+temperature the sampled stream of a (seed, uid, prompt) is the same in the
+step loop and the fused block, and equal to the reference's. Sampling runs on
+the device: no ``[B, V]`` readback. ``counters`` are the reference's except
+in the step-at-a-time loop at ``temperature > 0``: the reference reads back
+the sampled tokens and the sentinel lane separately (two host syncs a step),
+the port reads one packed ``[B, 2]`` tensor (one).
 """
 from __future__ import annotations
 
@@ -63,6 +76,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core import errors as ERR
 from repro_torch.core import quant as Q
+from repro_torch.core import threefry as TF
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as MD
 from repro_torch.serving.paging import PagedAllocator
@@ -162,8 +176,6 @@ def _unsupported(ec: EngineConfig, faults, draft_cfg, draft_params) -> None:
         later.append("speculative decoding (spec_draft / draft model)")
     if ec.mesh is not None:
         later.append("mesh serving (expert-parallel slice)")
-    if ec.temperature > 0.0:
-        later.append("temperature > 0 (needs the threefry key schedule)")
     if ec.snapshot_every_steps:
         later.append("snapshot_every_steps > 0 (resilience slice)")
     if faults is not None:
@@ -269,13 +281,17 @@ class Engine:
                                             self.device,
                                             block_size=ec.kv_block)
             self._admit_step = ST.make_slot_admit(cfg)
-        self._decode = ST.make_slot_decode(cfg)
+        self._decode = ST.make_slot_decode(cfg, ec.temperature)
         self._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
                                                        ec.temperature)
 
         self._slot_req: List[Optional[Request]] = [None] * ec.n_slots
         self._last_tok = np.zeros((ec.n_slots,), np.int32)
         self._active = np.zeros((ec.n_slots,), bool)
+        # per-slot sampling keys, fold_in(base, uid) assigned at admission
+        # (32-bit words in int64, see core.threefry)
+        self._key_base = TF.prng_key(ec.seed + 1)
+        self._slot_keys = np.zeros((ec.n_slots, 2), np.int64)
         # heap of (arrival_time, uid, seq, Request): admission is FIFO by
         # arrival regardless of submission order. The monotonic ``seq``
         # breaks (arrival, uid) ties so heapq never compares Requests.
@@ -438,9 +454,9 @@ class Engine:
             self._sync_tab()
             _, aux, self.cache = self._decode(
                 self.params, self.cache, self._dev(self._last_tok),
-                self._dev(self._active))
+                self._dev(self._active), self._dev(self._slot_keys))
             self.counters["device_calls"] += 1
-            aux_np = aux.cpu().numpy()       # ONE readback: (greedy, finite)
+            aux_np = aux.cpu().numpy()       # ONE readback: (token, finite)
             self.counters["host_syncs"] += 1
             slots = np.flatnonzero(self._active)
             self._check_finite(aux_np[slots, 1], slots)
@@ -480,7 +496,8 @@ class Engine:
         self._sync_tab()
         block, _, self.cache = self._decode_multi(
             self.params, self.cache, self._dev(self._last_tok),
-            self._dev(self._active), self._dev(rem), self._dev(eos))
+            self._dev(self._active), self._dev(rem), self._dev(eos),
+            self._dev(self._slot_keys))
         self.counters["device_calls"] += 1
         # ONE readback: [K, B, (tok, emit, finite)]
         block_np = block.cpu().numpy()
@@ -694,13 +711,23 @@ class Engine:
             lengths[i] = suffix.size
             slots[i] = slot
             pos0[i] = shared
+            # the request's sampling key, from its uid: the sampled stream
+            # does not depend on scheduling (module docstring)
+            self._slot_keys[slot] = TF.fold_in(self._key_base,
+                                               req.uid).numpy()
         self._sync_tab()
         paged_args = (self._dev(pos0),) if self._alloc is not None else ()
-        _, greedy, self.cache = self._admit_step(
+        logits, tokens, self.cache = self._admit_step(
             self.params, self.cache, self._dev(toks), self._dev(lengths),
             slots, *paged_args)
         self.counters["device_calls"] += 1
-        first = greedy[:B].cpu().numpy()
+        if self.ec.temperature > 0.0:
+            # the first token occupies position pos0 + length (the whole
+            # prompt), the index the decode steps use for it too
+            tokens = ST.sample_tokens(logits, self.ec.temperature,
+                                      self._dev(self._slot_keys[slots]),
+                                      self._dev(pos0 + lengths))
+        first = tokens[:B].cpu().numpy()
         self.counters["host_syncs"] += 1
         if self._alloc is not None and self.ec.prefix_sharing:
             # the rows exist now; sharing begins at the NEXT admission cycle

@@ -75,6 +75,20 @@ def model_pair(kind: str, dtype: str = "float32", seed: int = 0):
     return rcfg, params, pcfg, model
 
 
+DENSE_ARCH = "granite-8b"
+
+
+def dense_pair(arch: str = DENSE_ARCH, dtype: str = "float32", seed: int = 0):
+    """(ref cfg, ref params, port cfg, port model on the CPU) of a reduced
+    dense-family config: its reference parameters cross over through
+    ``convert.from_reference_params`` like the MoE ones."""
+    rcfg = ref_configs.get(arch).reduced().replace(dtype=dtype)
+    pcfg = configs.get(arch).reduced().replace(dtype=dtype)
+    params = ref_MD.init(rcfg, jax.random.PRNGKey(seed))
+    model = convert.from_reference_params(ref_tree_numpy(params), pcfg, "cpu")
+    return rcfg, params, pcfg, model
+
+
 # the staggered trace: fewer slots than requests, prompt lengths across two
 # buckets, one max_new_tokens=1, one eos_token, and one request that fills
 # its slot exactly (prompt + max_new == s_max + 1)
@@ -97,8 +111,9 @@ def trace_requests(vocab: int):
     return reqs
 
 
-def engine_kwargs(decode_block=8, dispatch="gather", batch_admission=True):
-    return dict(arch=ARCH, n_slots=N_SLOTS, s_max=S_MAX,
+def engine_kwargs(decode_block=8, dispatch="gather", batch_admission=True,
+                  arch=ARCH):
+    return dict(arch=arch, n_slots=N_SLOTS, s_max=S_MAX,
                 prefill_buckets=BUCKETS, decode_block=decode_block,
                 dispatch=dispatch, batch_admission=batch_admission)
 

@@ -181,7 +181,7 @@ def test_deadlines_shed_and_bounded_queue(small_model):
     dict(kv_layout="paged", spec_draft="/x"),
     dict(kv_dtype="int8", kv_layout="paged", mesh="data=2,model=2"),
     dict(spec_draft="/x"),
-    dict(mesh="data=2,model=2"), dict(temperature=0.7),
+    dict(mesh="data=2,model=2"),
     dict(snapshot_every_steps=4, snapshot_dir="/x"),
     dict(trace_guard="count"), dict(trace_guard="strict"),
 ], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))

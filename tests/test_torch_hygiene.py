@@ -45,15 +45,18 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert "imported" in out.stdout
 
 
-#: the one function of chip_smoke.py that times a library attention call as
-#: the kernels line's ``library_ms`` yardstick (never called by the port)
-YARDSTICK = "library_attention_ms"
+#: the functions of chip_smoke.py that time a library call as the kernels
+#: line's ``library_ms`` yardstick, never called by the port: one attention
+#: call, and the cuBLAS composition (``torch.mm`` x2, silu * mul,
+#: ``torch.mm``) that the model's MLP ran before the ``swiglu_mlp`` kernel
+YARDSTICKS = ("library_attention_ms", "previous_mlp_apply")
 
 
 def _nodes(tree):
-    """Every node, except the body of chip_smoke.py's yardstick function."""
+    """Every node, except the bodies of chip_smoke.py's yardstick
+    functions."""
     for node in ast.walk(tree):
-        if isinstance(node, ast.FunctionDef) and node.name == YARDSTICK:
+        if isinstance(node, ast.FunctionDef) and node.name in YARDSTICKS:
             node.body = []
     return ast.walk(tree)
 
@@ -64,7 +67,11 @@ def test_source_has_no_forbidden_import_or_call(path):
     text = path.read_text()
     tree = ast.parse(text)
     if path.name != "chip_smoke.py":
-        assert YARDSTICK not in text, path
+        assert not any(y in text for y in YARDSTICKS), path
+    else:
+        defined = {n.name for n in ast.walk(tree)
+                   if isinstance(n, ast.FunctionDef)}
+        assert set(YARDSTICKS) <= defined
     for node in _nodes(tree):
         names = []
         if isinstance(node, ast.Import):
@@ -82,6 +89,20 @@ def test_source_has_no_forbidden_import_or_call(path):
                         and node.value.id == "torch"), f"{path}: torch.compile"
         if isinstance(node, ast.Name):
             assert node.id != "scaled_dot_product_attention", path
+
+
+def test_every_tpu_kernel_has_a_wrapper_and_a_source():
+    """The eight TPU kernels of the reference, each with its hand-written
+    counterpart: a wrapper with a launch counter in ``ops.KERNELS`` and a
+    source in the build."""
+    from repro_torch.kernels import _build, ops
+    want = ("gather_swiglu", "grouped_swiglu", "gather_swiglu_q",
+            "grouped_swiglu_q", "paged_attention", "paged_attention_q",
+            "flash_attention", "swiglu_mlp")
+    assert tuple(ops.KERNELS) == want
+    assert set(_build.KERNEL_SOURCES) == set(want)
+    assert all(k.name == n and k.LAUNCHES == 0
+               for n, k in ops.KERNELS.items())
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -109,8 +130,11 @@ def test_kernel_sources_are_in_the_package_and_build_is_lazy():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"gather_swiglu.cu", "grouped_swiglu.cu", "moe_swiglu.cuh",
             "gather_swiglu_q.cu", "grouped_swiglu_q.cu", "paged_attention.cu",
-            "paged_attention_q.cu", "paged_attention.cuh"} <= names
-    assert {f"{n}.cu" for n in _build.KERNEL_SOURCES} <= names
+            "paged_attention_q.cu", "paged_attention.cuh",
+            "flash_attention.cu", "swiglu_mlp.cu"} <= names
+    assert {f"{n}.cu" for n in _build.KERNEL_SOURCES} == {
+        n for n in names if n.endswith(".cu")}
+    assert len(_build.KERNEL_SOURCES) == 8
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "build/" in gitignore
