@@ -32,13 +32,20 @@ one JSON line:
             last visible key dropped, over causal / non-causal, Sq < Sk, odd
             lengths, GQA and query offsets, and its rows are bitwise the same
             alone, in a batch, in a longer prefill and behind an offset; timed
-            at the admission and the capture shape beside one library call;
+            at the admission and the capture shape beside one library call
+            (CUDA events around back-to-back calls, and the device time of
+            calls replayed from a CUDA graph);
             swiglu_mlp at widths past granite's f (yi-34b, qwen1.5-110b) and
-            kimi-k2's shared expert, == grouped_swiglu with one group bitwise,
-            a row alone == among 256 bitwise, timed at granite's decode and
-            admission shapes beside the cuBLAS composition the model's MLP
-            ran before it; the threefry bits and uniforms on the card == on
-            the CPU, the Gumbel noise to 2 ulps of max(|g|, 1)
+            kimi-k2's shared expert, a row alone == among 8, 64 and 256
+            bitwise, timed at granite's decode and admission shapes beside
+            the cuBLAS composition the model's MLP ran before it. Both kernels
+            route by dtype: bf16 to their tensor-core kernels, fp32 to the
+            CUDA-core ones (each route held to the plain version and timed;
+            in fp32 swiglu_mlp == grouped_swiglu with one group, bitwise);
+            shapes the tensor-core kernels do not take (d or f not a multiple
+            of 8, hd not a multiple of 16, hd above 256) are refused before
+            launch. The threefry bits and uniforms on the card == on the
+            CPU, the Gumbel noise to 2 ulps of max(|g|, 1)
   contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
             prompt admitted alone and in a group of four gives bitwise-equal
             logits (and what that costs per admission group); paged == dense
@@ -81,8 +88,10 @@ one JSON line:
             bf16 pool at full width and depth N, on the card and on the CPU's
             plain path, same weights and contexts
 
-then a ``{"kernels": [...]}`` line (times, bounds and the serve phase's launch
-counts), the card's name and power limit, and ``{"ok": true, ...}`` last. Any
+then a ``{"kernels": [...]}`` line (times, bounds and the main path's launch
+counts, by route too: the bf16 main path must launch only the tensor-core
+kernels of flash_attention and swiglu_mlp), the card's name and power limit,
+and ``{"ok": true, ...}`` last. Any
 failing check raises: nothing is caught and no kernel failure is answered by
 the plain version.
 """
@@ -236,18 +245,39 @@ GATHER_CASES = {
 #: (T, d, f): the reference's swiglu cases (tests/test_kernels.py: its shape
 #: list and property test), T = 1, T not a multiple of the kernel's 8-row
 #: block, odd widths, a reduction axis longer than one staged chunk of 1024
-#: (d, then f, with a partial last chunk) and T = 0
+#: (d, then f, with a partial last chunk), T = 0, and widths of 8 times an odd
+#: number (ragged column and reduction tiles of the tensor-core route). The
+#: tensor-core route takes d and f multiples of 8: in bf16 a case with other
+#: widths must be refused before launch and runs at its widths rounded up.
 SWIGLU_CASES = {
     "ref-32x16x32": (32, 16, 32), "ref-64x32x48": (64, 32, 48),
     "ref-128x64x64": (128, 64, 64), "ref-48x24x96": (48, 24, 96),
     "property-40x8x48": (40, 8, 48), "property-16x24x16": (16, 24, 16),
     "T-one": (1, 16, 32), "T-13": (13, 24, 40), "odd-widths": (7, 23, 31),
     "d-chunks": (9, 2500, 40), "f-chunks": (5, 16, 2100), "T-zero": (0, 16, 32),
+    "ragged-8-odd": (11, 8 * 45, 8 * 131),
 }
 #: (B, nq, nkv, hd, bs, mb) as in tests/test_torch_paged_attention.py
 PAGED_CASES = {"mha": (2, 4, 4, 16, 4, 3), "gqa4": (3, 8, 2, 16, 8, 2),
                "hd32": (1, 4, 4, 32, 4, 4), "serve-like": (4, 8, 1, 128, 16, 4),
                "long-table": (2, 8, 2, 64, 16, 40)}
+
+
+def up_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def check_refused(fn, what: str) -> None:
+    """``fn`` raises ValueError before any kernel launches: a shape the
+    kernel does not take."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    try:
+        fn()
+    except ValueError:
+        check(ops.launch_counts() == before, f"{what}: launched, then refused")
+        return
+    raise AssertionError(f"{what}: a shape the kernel does not take ran")
 
 
 def paged_inputs(gen, B, nq, nkv, hd, nb, bs, mb, dtype, dev, lens=None):
@@ -318,7 +348,9 @@ def check_sees_dropped_row(name, want_of, lens, dtype, vmax):
 #: (B, H, nkv, Sq, Sk, hd, causal, qoff) as the reference's flash case list
 #: (tests/test_kernels.py) at reduced widths, plus GQA, odd lengths, Sq < Sk
 #: and Sq > Sk causal (rows that see no key), query offsets (the
-#: prefix-sharing admission) and the model's head width
+#: prefix-sharing admission) and the model's head width. The tensor-core
+#: route takes hd multiples of 16: in bf16 a case with another hd must be
+#: refused before launch and runs at its hd rounded up.
 FLASH_CASES = {
     "mha-32": (1, 1, 1, 32, 32, 8, True, None),
     "gqa-64": (2, 4, 2, 64, 64, 16, True, None),
@@ -485,6 +517,13 @@ def case_list(dev):
                                  x, qt, idx, w), dtype)
             note("gather_swiglu_q", err)
         for name, (T, d, f) in SWIGLU_CASES.items():
+            if dtype == torch.bfloat16 and (d % 8 or f % 8):
+                x = torch.zeros((T, d), dtype=dtype, device=dev)
+                wg, wu, wd = [w[0] for w in tables(gen, 1, d, f, dtype, dev)]
+                check_refused(lambda: SW.swiglu_mlp(x, wg, wu, wd),
+                              f"swiglu_mlp[{name},{key}]")
+                n += 1
+                d, f = up_to(d, 8), up_to(f, 8)
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
             wg, wu, wd = [w[0] for w in tables(gen, 1, d, f, dtype, dev)]
             got = SW.swiglu_mlp(x, wg, wu, wd)
@@ -558,7 +597,17 @@ def case_list(dev):
                          attn_tol_for(dtype, dense, float(vc.float().abs().max())))
         note("paged_attention", err)
         n += 2
+        q, k, v = flash_inputs(gen, 1, 2, 1, 8, 8, 272, dtype, dev)
+        check_refused(lambda: FA.attend(q, k, v, True),
+                      f"flash_attention[hd 272,{key}]")
+        n += 1
         for name, (B, H, nkv, Sq, Sk, hd, causal, off) in FLASH_CASES.items():
+            if dtype == torch.bfloat16 and hd % 16:
+                q, k, v = flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev)
+                check_refused(lambda: FA.attend(q, k, v, causal),
+                              f"flash_attention[{name},{key}]")
+                n += 1
+                hd = up_to(hd, 16)
             q, k, v = flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev)
             qoff = (None if off is None else
                     torch.tensor(off, dtype=torch.int32, device=dev))
@@ -593,6 +642,22 @@ def time_ms(fn, reps: int, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b) / reps)
     return statistics.median(out)
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    and replayed, so no host work sits between the launches (time_ms of a
+    kernel shorter than its wrapper's host call measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                              # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, reps=5) / calls
 
 
 def bound_ms(dtype, n_rows: int, experts_hit: int, d: int, f: int,
@@ -827,28 +892,30 @@ def flash_bound_ms(B, H, nkv, Sq, Sk, hd, dtype, causal=True):
     return max(t_bytes, t_ops) * 1e3, by
 
 
-def library_attention_ms(q, k, v) -> float:
+def library_attention_ms(q, k, v, timer=None) -> float:
     """One library call that computes the same causal attention (expanded
-    heads, contiguous), timed only as a yardstick: the port never calls it."""
+    heads, contiguous), timed only as a yardstick (by ``timer``, default
+    time_ms): the port never calls it."""
     import torch.nn.functional as F
-    return time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          is_causal=True),
-                   reps=20)
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    return timer(call) if timer else time_ms(call, reps=20)
 
 
 def flash_main_shapes(dev, cfg, shapes):
-    """flash_attention at the main path's shapes (``shapes``: (label, B, S)),
-    bf16, in the model's layout: q ``[B, S, H, hd]`` and the unexpanded K/V
-    ``[B, S, nkv, hd]`` read through their strides, as ``layers._attend``
-    hands them over. Checked against the fp32 plain version, timed against
-    its bound, the plain version and one library call."""
+    """flash_attention at the main path's shapes (``shapes``: (label, B, S,
+    dtype); bf16 takes the tensor-core route, fp32 the CUDA-core one), in the
+    model's layout: q ``[B, S, H, hd]`` and the unexpanded K/V ``[B, S, nkv,
+    hd]`` read through their strides, as ``layers._attend`` hands them over.
+    Checked against the fp32 plain version, timed against its bound, the
+    plain version and one library call."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     gen = torch.Generator(device=dev).manual_seed(11)
     H, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dtype = torch.bfloat16
     recs = []
-    for label, B, S in shapes:
+    for label, B, S, dtype in shapes:
         qm = (torch.randn((B, S, H, hd), generator=gen, device=dev)
               * 4.0).to(dtype)
         km = (torch.randn((B, S, nkv, hd), generator=gen, device=dev)
@@ -867,13 +934,15 @@ def flash_main_shapes(dev, cfg, shapes):
         plain = ops.KERNELS["flash_attention"].plain
         b_ms, by = flash_bound_ms(B, H, nkv, S, S, hd, dtype)
         recs.append(dict(
-            name="flash_attention", label=label,
-            shape=f"B={B} H={H} nkv={nkv} S={S} hd={hd} causal bf16, model "
-                  f"layout", max_err=err, tol=words,
-            ms=time_ms(fn, reps=20), bound_ms=b_ms, bound_by=by,
+            name="flash_attention", label=label, route=FA.route(dtype),
+            shape=f"B={B} H={H} nkv={nkv} S={S} hd={hd} causal "
+                  f"{dtype_key(dtype)}, model layout", max_err=err, tol=words,
+            ms=time_ms(fn, reps=20), device_ms=graph_ms(fn),
+            bound_ms=b_ms, bound_by=by,
             plain_ms=time_ms(lambda: plain(qc, kx, vx, causal=True), reps=3,
                              rounds=3),
             library_ms=library_attention_ms(qc, kx, vx),
+            library_device_ms=library_attention_ms(qc, kx, vx, graph_ms),
             library="torch.nn.functional.scaled_dot_product_attention("
                     "is_causal=True), expanded heads"))
     return recs
@@ -899,13 +968,16 @@ def mlp_weights(gen, d, f, dtype, dev):
 
 def swiglu_main_shapes(dev, admission_rows: int):
     """swiglu_mlp at full width: granite-8b's decode (8 slots) and admission
-    (the trace's largest bucket) shapes in bf16 and the decode shape in fp32,
-    checked against the plain version and timed beside its bound, the plain
-    version and the cuBLAS composition the model's MLP ran before; widths
-    past granite's f (yi-34b's f 20480, qwen1.5-110b's f 49152) and kimi-k2's
-    shared expert, checked; at granite's widths the kernel == grouped_swiglu
-    with one group, bitwise, and a row's result is the same alone, among 8
-    and among 256, bitwise."""
+    (the trace's largest bucket) shapes in bf16 (the tensor-core route) and
+    the decode shape in fp32 (the CUDA-core route), checked against the plain
+    version and timed beside its bound, the plain version and the cuBLAS
+    composition the model's MLP ran before; widths past granite's f (yi-34b's
+    f 20480, qwen1.5-110b's f 49152) and kimi-k2's shared expert, checked. At
+    admission a row's result is the same alone, among 8, among 64 and among
+    256, bitwise; in fp32 the kernel == grouped_swiglu with one group,
+    bitwise (the two share the CUDA-core arithmetic; in bf16 the tensor-core
+    route is held to its plain version instead). Returns the records and the
+    bf16 ones by label, with the fp32 decode record under "fp32"."""
     from repro_torch import configs
     from repro_torch.kernels import grouped_mlp, ops
     from repro_torch.kernels import swiglu as SW
@@ -917,7 +989,7 @@ def swiglu_main_shapes(dev, admission_rows: int):
     d, f = granite.d_model, granite.d_ff
     cases = [("decode", 8, d, f, torch.bfloat16, True),
              ("admission", admission_rows, d, f, torch.bfloat16, True),
-             ("decode", 8, d, f, torch.float32, False),
+             ("decode", 8, d, f, torch.float32, True),
              ("yi-34b widths", 4, yi.d_model, yi.d_ff, torch.bfloat16, False),
              ("qwen1.5-110b widths", 3, qwen.d_model, qwen.d_ff,
               torch.bfloat16, False),
@@ -932,42 +1004,51 @@ def swiglu_main_shapes(dev, admission_rows: int):
         got = SW.swiglu_mlp(x, wg, wu, wd)
         err, words = compare(f"swiglu_mlp[{label},{key}]", got,
                              plain(x, wg, wu, wd), dtype)
-        rec = dict(name="swiglu_mlp", label=label,
+        rec = dict(name="swiglu_mlp", label=label, route=SW.route(dtype),
                    shape=f"T={T} d={dm} f={fm} {key}", max_err=err, tol=words)
         if timed:
             size = x.element_size()
             b_ms, by = bound_ms(dtype, T, 1, dm, fm, 2 * T * dm * size)
+            p = types.SimpleNamespace(wg=wg, wu=wu, wd=wd)
             rec.update(ms=time_ms(lambda: SW.swiglu_mlp(x, wg, wu, wd),
                                   reps=10),
+                       device_ms=graph_ms(
+                           lambda: SW.swiglu_mlp(x, wg, wu, wd), calls=10),
                        bound_ms=b_ms, bound_by=by,
                        plain_ms=time_ms(lambda: plain(x, wg, wu, wd), reps=3,
                                         rounds=3),
-                       library_ms=time_ms(lambda: previous_mlp_apply(
-                           types.SimpleNamespace(wg=wg, wu=wu, wd=wd), x),
-                           reps=20),
+                       library_ms=time_ms(lambda: previous_mlp_apply(p, x),
+                                          reps=20),
+                       library_device_ms=graph_ms(
+                           lambda: previous_mlp_apply(p, x), calls=10),
                        library="cuBLAS composition (previous_mlp_apply): "
                                "torch.mm x2, silu * mul, torch.mm, the "
                                "model's MLP before this kernel")
-            entries[label] = rec
+            entries[label if dtype == torch.bfloat16 else "fp32"] = rec
         if label == "admission":
-            # one expert of the grouped kernel, and rows alone / in a batch
+            # rows alone and among 8, 64 and all T, bitwise
+            rows = (0, 5, T - 1)
+            alone = [SW.swiglu_mlp(x[i:i + 1], wg, wu, wd) for i in rows]
+            among = {n: SW.swiglu_mlp(x[:n].contiguous(), wg, wu, wd)
+                     for n in (8, 64)}
+            torch.cuda.synchronize()
+            rec["row_alone_vs_among_all_bitwise"] = all(
+                torch.equal(a[0], got[i]) for a, i in zip(alone, rows))
+            for n, y in among.items():
+                rec[f"among_{n}_vs_among_all_bitwise"] = bool(
+                    torch.equal(y, got[:n]))
+            check(rec["row_alone_vs_among_all_bitwise"]
+                  and rec["among_8_vs_among_all_bitwise"]
+                  and rec["among_64_vs_among_all_bitwise"],
+                  "swiglu_mlp: a row differs alone and among other rows")
+        if dtype == torch.float32 and label == "decode":
             one = grouped_mlp.grouped_swiglu(
                 x, wg[None], wu[None], wd[None],
                 torch.tensor([T], dtype=torch.int32, device=dev))
-            rows = (0, 5, T - 1)
-            alone = [SW.swiglu_mlp(x[i:i + 1], wg, wu, wd) for i in rows]
-            among8 = SW.swiglu_mlp(x[:8].contiguous(), wg, wu, wd)
             torch.cuda.synchronize()
             rec["bitwise_vs_grouped_one_group"] = bool(torch.equal(got, one))
-            rec["row_alone_vs_among_all_bitwise"] = all(
-                torch.equal(a[0], got[i]) for a, i in zip(alone, rows))
-            rec["among_8_vs_among_all_bitwise"] = bool(torch.equal(among8,
-                                                                   got[:8]))
             check(rec["bitwise_vs_grouped_one_group"],
-                  "swiglu_mlp != grouped_swiglu with one group, bitwise")
-            check(rec["row_alone_vs_among_all_bitwise"]
-                  and rec["among_8_vs_among_all_bitwise"],
-                  "swiglu_mlp: a row differs alone and among other rows")
+                  "swiglu_mlp != grouped_swiglu with one group, bitwise (fp32)")
         recs.append(rec)
         del wg, wu, wd, x
         free()
@@ -1088,6 +1169,7 @@ def serve(cfg, model, trace, device, **ec_kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()       # just after
+    routes = ops.route_launch_counts()
     check(len(done) == len(trace), "not every request came back")
     for r in reqs:
         check(r.status == "ok" and r.finish_reason == "length",
@@ -1104,7 +1186,8 @@ def serve(cfg, model, trace, device, **ec_kw):
         eng._alloc.check_invariants()
     return dict(tokens=[list(r.out_tokens) for r in reqs], counters=dict(c),
                 admits=admits, admit_ms=admit_ms, block_ms=block_ms,
-                wall_s=wall, launches=launches, n_blocks=len(block_ms),
+                wall_s=wall, launches=launches, routes=routes,
+                n_blocks=len(block_ms),
                 steps_per_block=eng.ec.decode_block,
                 paging_stats=eng.paging_stats,
                 kv_dtype_served=eng.kv_dtype_served,
@@ -1113,9 +1196,13 @@ def serve(cfg, model, trace, device, **ec_kw):
                          else None))
 
 
+#: kernels with a tensor-core route (bf16) beside their CUDA-core one (fp32)
+ROUTED = ("flash_attention", "swiglu_mlp")
+
+
 def check_launches(res, n_layers: int, dispatch: str = "gather",
                    experts: str = "bf16", kv: str = "dense",
-                   family: str = "moe"):
+                   family: str = "moe", dtype: str = "bfloat16"):
     """Every kernel's launches in one serve: MoE family, the gather kernel of
     the expert form once per decode step and MoE layer; the grouped kernel of
     the form once per ADMITTED ROW and MoE layer (each row is prefilled
@@ -1126,7 +1213,9 @@ def check_launches(res, n_layers: int, dispatch: str = "gather",
     and paged); the paged kernel of the pool's type once per decode step and
     layer, where the dense cache's decode runs the bf16 one over a contiguous
     table; every other kernel never (qwen3-moe has no shared expert, so no
-    swiglu_mlp)."""
+    swiglu_mlp). Each launch of flash_attention and swiglu_mlp took the route
+    of the model's dtype: the tensor-core kernels in bf16, the CUDA-core ones
+    in fp32."""
     steps = res["n_blocks"] * res["steps_per_block"]
     rows = sum(shape[0] for shape in res["admits"])
     sfx = "_q" if experts == "int8" else ""
@@ -1145,6 +1234,18 @@ def check_launches(res, n_layers: int, dispatch: str = "gather",
           f"launches {res['launches']} != expected {want}")
     check(all(n > 0 for n in used.values()),
           f"a kernel of this form never launched: {res['launches']}")
+    check_routes(res["routes"], dtype)
+
+
+def check_routes(routes, dtype: str):
+    """Every launch of a routed kernel took its dtype's route, every launch
+    of another kernel its one CUDA-core route."""
+    for name, by_route in routes.items():
+        took = ("tensor_core" if name in ROUTED and dtype == "bfloat16"
+                else "cuda_core")
+        check(sum(n for r, n in by_route.items() if r != took) == 0,
+              f"{name}: launches off the {took} route in {dtype}: "
+              f"{by_route}")
 
 
 def build_model(cfg, device, seed):
@@ -1189,7 +1290,8 @@ def serve_summary(res, card):
                 ms_per_decode_block_median=statistics.median(res["block_ms"]),
                 ms_per_decode_block_max=max(res["block_ms"]),
                 peak_memory_gb=res["peak_gb"], counters=res["counters"],
-                launches=res["launches"], paging_stats=res["paging_stats"],
+                launches=res["launches"], routes=res["routes"],
+                paging_stats=res["paging_stats"],
                 kv_dtype_served=res["kv_dtype_served"],
                 expert_weight_dtypes=res["expert_weight_dtypes"],
                 finite_lane="all ones (a zero raises NumericHealthError)")
@@ -1862,7 +1964,7 @@ def rehearse_config(args, small, forms, family: str, device) -> dict:
         on_cpu = serve(small, cpu_model, trace, "cpu", **kw)
         on_gpu = serve(small, gpu_model, trace, device, **kw)
         check_launches(on_gpu, small.n_layers, experts=experts, kv=kv,
-                       family=family)
+                       family=family, dtype=small.dtype)
         check(on_cpu["launches"] == zero, "the CPU path launched a kernel")
         check(on_gpu["tokens"] == on_cpu["tokens"],
               f"reduced fp32 {small.name}, {form}: tokens on the card differ "
@@ -1996,7 +2098,8 @@ def compress_phase(args, full_cfg, device, card, trace):
     suffix merged 128 -> 64 by ``launch.compress.run`` (fp64 host solves),
     held-out loss of both models; the in-sample check on the first merged
     layer; the compressed model served in bf16 and with int8 tables.
-    Returns the launches of the compression run and of the two serves."""
+    Returns the launches of the compression run and of the two serves, by
+    kernel and by kernel and route."""
     from repro_torch.core import calibration as CAL
     from repro_torch.kernels import ops
     from repro_torch.launch import compress as LC
@@ -2024,6 +2127,8 @@ def compress_phase(args, full_cfg, device, card, trace):
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = ops.launch_counts()       # just after
+    routes = ops.route_launch_counts()
+    check_routes(routes, cfg.dtype)
     n_forwards = CALIB_BATCHES + 2 * EVAL_BATCHES
     want = {name: 0 for name in TABLE}
     want["flash_attention"] = n_forwards * cfg.n_layers
@@ -2077,7 +2182,14 @@ def compress_phase(args, full_cfg, device, card, trace):
     for res in served.values():
         for name, n in res["launches"].items():
             total[name] += n
-    return total
+        add_routes(routes, res["routes"])
+    return total, routes
+
+
+def add_routes(into, routes):
+    for name, by_route in routes.items():
+        for r, n in by_route.items():
+            into[name][r] += n
 
 
 def decode_lens(trace) -> torch.Tensor:
@@ -2110,7 +2222,7 @@ def main(argv=None) -> int:
               "is False", file=sys.stderr)
         return 1
     from repro_torch import configs, env
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     from repro_torch.models import numerics
 
     device = "cuda"
@@ -2150,21 +2262,25 @@ def main(argv=None) -> int:
     n_cases, worst, invariance = case_list(device)
     checks, entries, quant_bitwise = main_path_shapes(
         device, full_cfg, admission_rows, decode_lens(trace))
+    prompt = admission_rows // full_cfg.moe.top_k
     flash = flash_main_shapes(
         device, full_cfg,
-        [("admission", 1, admission_rows // full_cfg.moe.top_k),
-         ("capture", CALIB_BATCH, CALIB_SEQ)])
+        [("admission", 1, prompt, torch.bfloat16),
+         ("capture", CALIB_BATCH, CALIB_SEQ, torch.bfloat16),
+         ("admission", 1, prompt, torch.float32)])
     checks.extend(flash)
-    entries["flash_attention"] = flash[0]
-    swiglu, swiglu_timed = swiglu_main_shapes(
-        device, admission_rows // full_cfg.moe.top_k)
+    timed_keys = ("shape", "max_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "library_device_ms")
+    # the main entries are bf16 (the tensor-core routes); the fp32 route's
+    # numbers ride along, and swiglu's admission shape beside its decode one
+    entries["flash_attention"] = dict(flash[0], cuda_core_route={
+        k: flash[2][k] for k in timed_keys})
+    swiglu, swiglu_timed = swiglu_main_shapes(device, prompt)
     checks.extend(swiglu)
-    # the main entry is the decode shape (most launches); the admission
-    # shape's numbers ride along
-    entries["swiglu_mlp"] = dict(swiglu_timed["decode"], admission={
-        k: swiglu_timed["admission"][k] for k in (
-            "shape", "max_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")})
+    entries["swiglu_mlp"] = dict(
+        swiglu_timed["decode"],
+        admission={k: swiglu_timed["admission"][k] for k in timed_keys},
+        cuda_core_route={k: swiglu_timed["fp32"][k] for k in timed_keys})
     emit("kernels", cases_passed=n_cases, worst_abs_err_case_list=worst,
          quantize_card_equals_cpu_bitwise=quant_bitwise,
          flash_attention_rows_invariant_bitwise=invariance,
@@ -2180,6 +2296,8 @@ def main(argv=None) -> int:
     emit("contracts", layers=cfg.n_layers,
          **contracts(cfg, model, device, decode_lens(trace)))
     total_launches = {name: 0 for name in TABLE}
+    total_routes = {name: dict.fromkeys(r, 0) for name, r in
+                    ops.route_launch_counts().items()}
 
     def record(res, form, mcfg, n_weights, experts="bf16", kv="dense",
                family="moe", **extra):
@@ -2187,6 +2305,7 @@ def main(argv=None) -> int:
                        family=family)
         for name in total_launches:
             total_launches[name] += res["launches"][name]
+        add_routes(total_routes, res["routes"])
         emit("serve", model=mcfg.name, form=form, layers=mcfg.n_layers,
              dtype=mcfg.dtype, weights_gb=n_weights, **extra,
              **serve_summary(res, card))
@@ -2316,8 +2435,11 @@ def main(argv=None) -> int:
 
     # ---- compression: MergeMoE at full width, then the merged model served
     t0 = time.perf_counter()
-    for name, n in compress_phase(args, full_cfg, device, card, trace).items():
+    compress_launches, compress_routes = compress_phase(args, full_cfg, device,
+                                                        card, trace)
+    for name, n in compress_launches.items():
         total_launches[name] += n
+    add_routes(total_routes, compress_routes)
     t_compress = time.perf_counter() - t0
 
     # ---- variants at a small depth: decode_block=1 and dispatch="ragged"
@@ -2377,12 +2499,15 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=total_launches[name],
+            launches_by_route=total_routes[name],
             max_abs_err=rec["max_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec.get("library_ms"), shape=rec["shape"],
-            **({"admission": rec["admission"]} if "admission" in rec
-               else {})))
+            **{k: rec[k] for k in ("device_ms", "library_device_ms",
+                                   "admission", "cuda_core_route")
+               if k in rec}))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
+    check_routes(total_routes, "bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
         rehearse=t_rehearse, kernels=t_kernels, serve=t_serve, dense=t_dense,

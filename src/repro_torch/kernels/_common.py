@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -18,24 +18,38 @@ SMEM_LIMIT = 227 * 1024
 class Kernel:
     """One hand-written kernel: its public name, its plain PyTorch version
     and ``LAUNCHES``, the number of times its wrapper launched it (never the
-    plain version)."""
+    plain version). A kernel with more than one route (a CUDA-core and a
+    tensor-core entry point, chosen by dtype) also counts its launches per
+    route in ``ROUTE_LAUNCHES``."""
 
-    def __init__(self, name: str, plain: Callable):
+    def __init__(self, name: str, plain: Callable, routes=("cuda_core",)):
         self.name = name
         self.plain = plain
         self.LAUNCHES = 0
+        self.ROUTE_LAUNCHES = {r: 0 for r in routes}
+
+    def count(self, route: str = "cuda_core") -> None:
+        """One launch of ``route``'s kernel, called right after it."""
+        self.ROUTE_LAUNCHES[route] += 1
+        self.LAUNCHES += 1
+
+    def reset(self) -> None:
+        self.LAUNCHES = 0
+        self.ROUTE_LAUNCHES = dict.fromkeys(self.ROUTE_LAUNCHES, 0)
 
 
 _FNS: Dict[str, Callable] = {}
 
 
-def launcher(symbol: str, n_ptr: int, n_int: int, tail=()) -> Callable:
-    """The C function ``symbol`` (``<source>_launch`` of
-    ``csrc/<source>.cu``), built, loaded and bound at first use: ``n_ptr``
+def launcher(symbol: str, n_ptr: int, n_int: int, tail=(),
+             source: Optional[str] = None) -> Callable:
+    """The C function ``symbol`` of ``csrc/<source>.cu`` (default: the symbol
+    is ``<source>_launch``), built, loaded and bound at first use: ``n_ptr``
     pointers, ``n_int`` ints, then the ``tail`` types and the stream pointer,
     returning an int."""
     if symbol not in _FNS:
-        fn = getattr(_build.load(symbol[:-len("_launch")]), symbol)
+        lib = _build.load(source or symbol[:-len("_launch")])
+        fn = getattr(lib, symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + list(tail) + [ctypes.c_void_p])
@@ -113,6 +127,11 @@ def check_qtables(name: str, x: torch.Tensor, qt):
                              f"expected {shapes[nm]} {dtype}")
     _check_same_place(name, x, tabs)
     return dims
+
+
+def n_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_launch(name: str, code: int) -> None:

@@ -3,42 +3,53 @@
 // (_kernel), whose grid (B*H, Sq/bq, Sk/bk) carries the running max, the
 // normaliser and the fp32 accumulator of a query tile from one kv block to the
 // next in VMEM. Blocks on this card run in no order, so the kv axis becomes a
-// loop inside one block:
+// loop inside one block. Two routes, chosen by the wrapper from the dtype
+// (kernels/flash_attention.py :: route), each with its own C entry point.
 //
-//   block (tile, h, b) = 64 query rows of one head; 8 warps, warp w owns rows
-//   w, w + 8, ... of the tile. The block walks the key tiles of kBK = 64 keys
-//   from key 0 (key tiles are aligned at absolute key positions), stages each
-//   tile's K and V rows in shared memory as fp32 once for all 64 rows, and
-//   every warp updates the state of each of its rows (running max m,
-//   normaliser l, fp32 accumulator; kept in shared memory between tiles) one
-//   32-key chunk at a time: lane l computes the logit of key l of the chunk,
-//   s = (q . k) * scale in fp32 (fmaf in column order), then
-//   m' = max(m, max s), p = exp(s - m'), l = l exp(m - m') + sum p, and
-//   acc = acc exp(m - m') + sum round_T(p) v, each lane owning hd / 32
-//   columns. One division by l at the end (l == 0 -> 1), output in q's type.
+// Shared by both. Causal: query row i of batch row b sits at position
+// qoff[b] + i (qoff == null: Sk - Sq, the oracle's bottom-right alignment) and
+// sees the keys at positions <= that; the block stops at the last key any of
+// its rows sees (fully masked key tiles are skipped), and a row's state does
+// not move past its own last key. A row that sees no key at all (causal with
+// Sq > Sk) gets the oracle's answer for a fully masked row: every key with
+// equal weight. Key tiles are aligned at absolute key positions and walked in
+// order; a key a row does not see contributes exactly 0 and the row max is
+// taken over the keys it sees, so a row's result depends only on its position
+// and the keys it sees, never on B, Sq, or which tile holds it. p is rounded
+// to the input type before the value product; one division by l at the end
+// (l == 0 -> 1), output in q's type. GQA: head h reads kv head h / n_rep, so
+// the model path need not expand K/V. q, k, v and out are addressed through
+// strides (in elements; the last axis contiguous), so [B, S, H, hd]
+// activations are read without a transposed copy.
 //
-// Causal: query row i of batch row b sits at position qoff[b] + i (qoff ==
-// null: Sk - Sq, the oracle's bottom-right alignment) and sees the keys at
-// positions <= that; the block stops at the last key any of its rows sees
-// (fully masked key tiles are skipped), and a row stops at its own last key.
-// A row that sees no key at all (causal with Sq > Sk) gets the oracle's
-// answer for a fully masked row: every key with equal weight. A key a row
-// does not see never enters a sum, so a row's result depends only on its
-// position and the keys it sees, never on B, Sq, or which tile holds it: the
-// chunks are the same absolute 32-key ranges, reduced in the same order.
+// bf16, tensor cores (namespace flash_tc, flash_attention_tc_launch),
+// FlashAttention-2 style: block (tile, h, b) = 64 query rows of one head, 4
+// warps, warp w owns rows 16w .. 16w + 15. Q and the K/V tiles of kBK = 64
+// keys sit in shared memory as bf16; the K/V tiles are double-buffered by
+// 16-byte cp.async, the next tile landing while the current one is consumed.
+// S = Q K^T and O += P V run on mma.m16n8k16 (bf16 in, fp32 accumulate; V
+// through ldmatrix.trans); the S accumulators become P's A fragments in
+// registers. The running max and sum of a row stay in the registers of the
+// quad that holds it, reduced by shuffles. hd a multiple of 16 up to 256, the
+// kernel compiled for 16, 32, 64, 128 and 256 columns (a narrower hd runs the
+// next width with zero-filled columns it never reads back). What bounds it:
+// at the port's shapes (S up to 512, hd 128) neither bytes nor operations but
+// latency: one wave of short blocks.
 //
-// GQA: head h reads kv head h / n_rep, so the model path need not expand K/V.
-// q, k, v and out are addressed through strides (in elements; the last axis
-// contiguous), so [B, S, H, hd] activations are read without a transposed copy.
-//
-// What bounds it on this card: at the shapes of this port (S <= 512, hd 128)
-// the work is small and the kernel is bound by its own fp32 CUDA-core
-// arithmetic and shared-memory traffic, far from both the byte bound and the
-// tensor cores. Tensor cores (wgmma), TMA and a split-K walk are later work.
+// fp32, CUDA cores (namespace flash, flash_attention_launch): on tensor cores
+// fp32 would become TF32, so fp32 keeps this kernel: 8 warps, warp w owns rows
+// w, w + 8, ... of the tile; K/V tiles staged in shared memory as fp32; every
+// warp updates the state of each of its rows (kept in shared memory between
+// tiles) one 32-key chunk at a time: lane l computes the logit of key l of the
+// chunk, s = (q . k) * scale in fp32 (fmaf in column order), then
+// m' = max(m, max s), p = exp(s - m'), l = l exp(m - m') + sum p, and
+// acc = acc exp(m - m') + sum round_T(p) v, each lane owning hd / 32 columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "tc_sm90.cuh"
 
 namespace flash {
 
@@ -56,19 +67,6 @@ struct Num<float> {
   static __device__ __forceinline__ float to_f32(float v) { return v; }
   static __device__ __forceinline__ float from_f32(float v) { return v; }
   static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -239,23 +237,309 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace flash
 
-// dtype (of q, k, v and out): 0 = float32, 1 = bfloat16. q / out: [B, H, Sq,
-// hd], k / v: [B, H / n_rep, Sk, hd], each addressed through `strides`: 12
-// int64 (b, h, s) element strides of q, k, v, out in that order, the last axis
-// contiguous. qoff: [B] int32 query offsets for the causal mask, or null.
-// Returns 0 or the cudaError_t of the refused launch; -1 for a bad dtype.
+namespace flash_tc {
+
+using tc::bf16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 16 * kWarps;  // query rows per block
+constexpr int kBK = 64;           // keys per tile
+constexpr int kStages = 2;        // K/V tiles double-buffered (a third
+                                  // stage costs the second block an SM)
+
+// Row pitch of the shared tiles, in bf16: HD + 8 keeps the 8 rows of every
+// ldmatrix on distinct banks.
+template <int HD>
+__host__ __device__ constexpr int pitch() {
+  return HD + 8;
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return (size_t)(kBQ + 2 * kStages * kBK) * pitch<HD>() * sizeof(bf16);
+}
+
+// Rows [r0, r0 + 64) of a [rows, hd] slice (row stride ld) into a [64][pitch]
+// tile; rows >= n and columns >= hd zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base,
+                                          long long ld, int r0, int n,
+                                          int hd) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r0 + r < n && c < hd;
+    tc::cp_async16(dst + r * pitch<HD>() + c,
+                   ok ? base + (r0 + r) * ld + c : base, ok);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// grid: (ceil(Sq / kBQ), H, B); shared memory: smem_bytes<HD>().
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ out,
+                const int* __restrict__ qoff, int Sq, int Sk, int hd,
+                int n_rep, flash::Strides qs, flash::Strides ks,
+                flash::Strides vs, flash::Strides os, int causal,
+                float scale) {
+  constexpr int P = pitch<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + kBQ * P;            // [kStages][kBK][P]
+  bf16* Vs = Ks + kStages * kBK * P;  // [kStages][kBK][P]
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g = h / n_rep;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rows = min(kBQ, Sq - q0);
+  const int off = qoff != nullptr ? qoff[b] : Sk - Sq;
+  // the keys this tile needs: up to the last key its last row sees, or all
+  // of them when a row sees none (equal weights over every key)
+  int n_keys = Sk;
+  if (causal) {
+    const int first_last = q0 + off;
+    const int tile_last = q0 + rows - 1 + off;
+    n_keys = first_last < 0 ? Sk : min(Sk, tile_last + 1);
+  }
+  const int n_tiles = (n_keys + kBK - 1) / kBK;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* kb = k + b * ks.b + g * ks.h;
+  const bf16* vb = v + b * vs.b + g * vs.h;
+  load_rows<HD>(Qs, qb, qs.s, q0, Sq, hd);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {  // Q rides with tile 0
+    if (t < n_tiles) {
+      load_rows<HD>(Ks + t * kBK * P, kb, ks.s, t * kBK, n_keys, hd);
+      load_rows<HD>(Vs + t * kBK * P, vb, vs.s, t * kBK, n_keys, hd);
+    }
+    tc::cp_async_commit();
+  }
+
+  // this thread's two rows: 16 warp + lane / 4 + 8 j of the tile
+  int last[2];
+  bool uni[2];
+  float m[2], l[2];
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + warp * 16 + lane / 4 + 8 * j;
+    int lst = -1;  // a row past Sq sees nothing and is never stored
+    uni[j] = false;
+    if (row < Sq) {
+      lst = causal ? off + row : Sk - 1;
+      uni[j] = lst < 0;
+      if (uni[j] || lst > Sk - 1) lst = Sk - 1;
+    }
+    last[j] = lst;
+    m[j] = -INFINITY;
+    l[j] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.0f;
+  int warp_last = max(last[0], last[1]);
+#pragma unroll
+  for (int sh = 16; sh > 0; sh /= 2)
+    warp_last = max(warp_last, __shfl_xor_sync(0xffffffffu, warp_last, sh));
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int nxt = kt + kStages - 1;  // lands while this tile is used
+    if (nxt < n_tiles) {
+      load_rows<HD>(Ks + (nxt % kStages) * kBK * P, kb, ks.s, nxt * kBK,
+                    n_keys, hd);
+      load_rows<HD>(Vs + (nxt % kStages) * kBK * P, vb, vs.s, nxt * kBK,
+                    n_keys, hd);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<kStages - 1>();  // tile kt (and Q) have landed
+    __syncthreads();
+    const int k0 = kt * kBK;
+    if (k0 <= warp_last) {
+      const bf16* kt_s = Ks + (kt % kStages) * kBK * P;
+      const bf16* vt_s = Vs + (kt % kStages) * kBK * P;
+      // s = q . k over the key tile: 8 n8 tiles of keys
+      float s[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        if (kk * 16 >= hd) break;
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, Qs + (warp * 16 + tc::a_row(lane)) * P + kk * 16 +
+                               tc::a_col(lane));
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bb[4];
+          tc::ldmatrix_x4(bb, kt_s + (np * 16 + tc::bnk_row(lane)) * P +
+                                  kk * 16 + tc::bnk_col(lane));
+          tc::mma_bf16_16816(s[2 * np], a, bb[0], bb[1]);
+          tc::mma_bf16_16816(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      // mask and scale; the row max over the keys the row sees
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = e / 2;
+          const int key = k0 + nt * 8 + (lane % 4) * 2 + (e & 1);
+          const float val = key <= last[j]
+                                ? (uni[j] ? 0.0f : s[nt][e] * scale)
+                                : -INFINITY;
+          s[nt][e] = val;
+          mx[j] = fmaxf(mx[j], val);
+        }
+      float alpha[2], base[2], sum[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float m_new = fmaxf(m[j], quad_max(mx[j]));
+        base[j] = m_new == -INFINITY ? 0.0f : m_new;
+        alpha[j] = expf(m[j] - base[j]);  // 0 on the first update, 1 if the
+        m[j] = m_new;                     // max stays
+        sum[j] = 0.0f;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[nt][e] - base[e / 2]);
+          s[nt][e] = p;
+          sum[e / 2] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) l[j] = l[j] * alpha[j] + quad_sum(sum[j]);
+#pragma unroll
+      for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e / 2];
+      // o += round_bf16(p) v, 16 keys at a time
+#pragma unroll
+      for (int kc = 0; kc < kBK / 16; ++kc) {
+        uint32_t a[4];
+        a[0] = tc::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+        a[1] = tc::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+        a[2] = tc::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+        a[3] = tc::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+#pragma unroll
+        for (int nd = 0; nd < HD / 16; ++nd) {
+          if (nd * 16 >= hd) break;
+          uint32_t bb[4];
+          tc::ldmatrix_x4_trans(bb, vt_s + (kc * 16 + tc::bkn_row(lane)) * P +
+                                        nd * 16 + tc::bkn_col(lane));
+          tc::mma_bf16_16816(o[2 * nd], a, bb[0], bb[1]);
+          tc::mma_bf16_16816(o[2 * nd + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed: tile kt + 2 may land in it
+  }
+  tc::cp_async_wait<0>();  // no key tile at all (Sk == 0): Q's copy
+
+  bf16* ob = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + warp * 16 + lane / 4 + 8 * j;
+    if (row >= Sq) continue;
+    const float den = l[j] == 0.0f ? 1.0f : l[j];
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      const int col = i * 8 + (lane % 4) * 2;
+      if (col < hd)
+        *reinterpret_cast<uint32_t*>(ob + row * os.s + col) =
+            tc::pack_bf16(__fdiv_rn(o[i][2 * j], den),
+                          __fdiv_rn(o[i][2 * j + 1], den));
+    }
+  }
+}
+
+template <int HD>
+int launch_hd(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+              const int* qoff, int B, int H, int Sq, int Sk, int hd,
+              int n_rep, const flash::Strides (&st)[4], int causal,
+              float scale, cudaStream_t stream) {
+  auto kern = flash_tc_kernel<HD>;
+  const size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, out, qoff, Sq, Sk, hd, n_rep,
+                                         st[0], st[1], st[2], st[3], causal,
+                                         scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash_tc
+
+// The fp32 route (CUDA cores). q / out: [B, H, Sq, hd], k / v: [B, H / n_rep,
+// Sk, hd], float32, each addressed through `strides`: 12 int64 (b, h, s)
+// element strides of q, k, v, out in that order, the last axis contiguous.
+// qoff: [B] int32 query offsets for the causal mask, or null. Returns 0 or
+// the cudaError_t of the refused launch; -1 for a dtype other than 0 (bf16
+// takes flash_attention_tc_launch).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       const int* qoff, const long long* strides,
                                       int B, int H, int Sq, int Sk, int hd,
                                       int n_rep, int causal, float scale,
                                       int dtype, void* stream) {
+  if (dtype != 0) return -1;
+  return flash::launch<float>(q, k, v, out, qoff, B, H, Sq, Sk, hd, n_rep,
+                              strides, causal, scale, (cudaStream_t)stream);
+}
+
+// The bf16 route (tensor cores): the same arguments in bfloat16, hd a
+// multiple of 16 up to 256, every stride a multiple of 8 elements and every
+// base 16-byte aligned. Returns 0, the cudaError_t of a refused launch, or -2
+// for an hd the kernel does not take.
+extern "C" int flash_attention_tc_launch(const void* q, const void* k,
+                                         const void* v, void* out,
+                                         const int* qoff,
+                                         const long long* strides, int B,
+                                         int H, int Sq, int Sk, int hd,
+                                         int n_rep, int causal, float scale,
+                                         int dtype, void* stream) {
+  if (dtype != 1) return -1;
+  if (hd < 16 || hd > 256 || hd % 16 != 0) return -2;
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  using tc::bf16;
+  const flash::Strides st[4] = {{strides[0], strides[1], strides[2]},
+                                {strides[3], strides[4], strides[5]},
+                                {strides[6], strides[7], strides[8]},
+                                {strides[9], strides[10], strides[11]}};
+  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
+  bf16* oo = (bf16*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return flash::launch<float>(q, k, v, out, qoff, B, H, Sq, Sk, hd, n_rep,
-                                strides, causal, scale, s);
-  if (dtype == 1)
-    return flash::launch<__nv_bfloat16>(q, k, v, out, qoff, B, H, Sq, Sk, hd,
-                                        n_rep, strides, causal, scale, s);
-  return -1;
+  if (hd <= 16)
+    return flash_tc::launch_hd<16>(qq, kk, vv, oo, qoff, B, H, Sq, Sk, hd,
+                                   n_rep, st, causal, scale, s);
+  if (hd <= 32)
+    return flash_tc::launch_hd<32>(qq, kk, vv, oo, qoff, B, H, Sq, Sk, hd,
+                                   n_rep, st, causal, scale, s);
+  if (hd <= 64)
+    return flash_tc::launch_hd<64>(qq, kk, vv, oo, qoff, B, H, Sq, Sk, hd,
+                                   n_rep, st, causal, scale, s);
+  if (hd <= 128)
+    return flash_tc::launch_hd<128>(qq, kk, vv, oo, qoff, B, H, Sq, Sk, hd,
+                                    n_rep, st, causal, scale, s);
+  return flash_tc::launch_hd<256>(qq, kk, vv, oo, qoff, B, H, Sq, Sk, hd,
+                                  n_rep, st, causal, scale, s);
 }

@@ -1,24 +1,51 @@
 // swiglu_mlp: the dense SwiGLU MLP y = (silu(x @ wg) * (x @ wu)) @ wd for
-// Hopper (sm_90a), as ONE expert of moe_swiglu.cuh. Replaces the TPU kernel
-// src/repro/kernels/swiglu.py :: swiglu_mlp (_kernel).
+// Hopper (sm_90a). Replaces the TPU kernel src/repro/kernels/swiglu.py ::
+// swiglu_mlp (_kernel). Its contract: g and u in fp32, h = round(silu(g) * u)
+// in the model type, the down product accumulated in fp32, one rounding of the
+// output. Two routes, chosen by the wrapper from the dtype (kernels/swiglu.py
+// :: route), each with its own C entry point:
 //
-// A thread owns W adjacent output columns of up to kRows rows and walks its
-// reduction axis in index order with fmaf (moe::rows_dot_columns_acc): i < d
-// for the gate and up products, j < f for the down product; h is rounded to
-// the model type between the passes and the output once. A row's bits
-// therefore depend on (d, f) alone: not on T, not on which rows share its
-// block, and they equal grouped_swiglu's with one expert.
+// bf16, tensor cores (namespace tcmlp, swiglu_mlp_tc_launch). What bounds it:
+// at decode the weight stream (3 d f bf16 values read once; granite-8b 352 MB,
+// 0.105 ms at 3.35 TB/s), at admission close to the same bytes and 90 GFLOP
+// (T 256), 0.091 ms at the bf16 tensor peak. The design:
+//   up    one block owns a 128-row x 128-column tile of BOTH g and u: x's
+//         rows and the two weight tiles stream through a ring of 4 shared-
+//         memory stages (16-byte cp.async into 128-byte-swizzled tiles, kBK
+//         = 64 reduction values a stage) while two warpgroups, 64 rows each,
+//         run wgmma.m64n128k16 (bf16 in, fp32 accumulate) on an earlier
+//         stage: x K-major, the weights [d, f] row-major, so MN-major (the
+//         instruction's transposed B). The epilogue computes silu(g) * u in
+//         fp32 and rounds h to bf16. h goes to device memory: it is 0.07 % of
+//         the bytes at decode and 2 % at T 256, not worth a fused pass. Wide
+//         tiles matter at admission: every column tile reads all of x, every
+//         row tile all of the weights, from L2.
+//   down  d / 128 column tiles do not fill the card, so the reduction axis f
+//         is cut into S slices (bounds multiples of kBK), each block writing
+//         its fp32 partial to scratch [S, T, d]; reduce_tc sums the partials
+//         in slice order and rounds once (S == 1: the block rounds itself). No
+//         atomics on values.
+// The tile plan (128-column tiles, kBK, S and the slice bounds) is computed by
+// the wrapper from (d, f, SM count) only and passed in; nothing of it reads T.
+// A row's bits therefore depend on (d, f) and the card alone: the k-tiles run
+// in the same order and slices for every T, always through the same wgmma
+// shape, whose rows never mix; pad rows of a tile are zero-filled and never
+// stored, and a warpgroup with no live row skips its products. A row alone ==
+// among 8 == among 256, fused decode == stepwise, admission alone == in a
+// group. d and f must be multiples of 8 (one 16-byte copy holds 8 values);
+// ragged tile edges are zero-filled on load and masked on store.
 //
-// The block's rows are staged in shared memory kChunk values of the reduction
-// axis at a time (consecutive pieces of the same fmaf chain), so the shared
-// memory a block needs does not grow with d or f and every dense config's
-// published widths fit. grouped_swiglu holds whole fp32 rows instead, which
-// leaves one row a block at f = 20480 and none past f = 58112.
-//
-// Two passes on the current stream, as the MoE kernels: gate/up writes
-// h [T, f] to device memory in the model type, down reads it back. Keeping h
-// on chip, as the TPU kernel does, is the known next step.
+// fp32, CUDA cores (namespace mlp, swiglu_mlp_launch): on tensor cores fp32
+// would become TF32, so fp32 keeps the kernel pair below, one expert of
+// moe_swiglu.cuh, bit for bit grouped_swiglu with one group. A thread owns W
+// adjacent output columns of up to kRows rows and walks its reduction axis in
+// index order with fmaf (moe::rows_dot_columns_acc): i < d for the gate and up
+// products, j < f for the down product; h is rounded between the passes and
+// the output once. The block's rows are staged in shared memory kChunk values
+// of the reduction axis at a time (consecutive pieces of the same fmaf chain),
+// so the shared memory a block needs does not grow with d or f.
 #include "moe_swiglu.cuh"
+#include "tc_sm90.cuh"
 
 namespace mlp {
 
@@ -155,23 +182,284 @@ int launch(const T* x, const T* wg, const T* wu, const T* wd, T* h, T* y,
 
 }  // namespace mlp
 
-// dtype: 0 = float32, 1 = bfloat16. x [T, d], wg / wu [d, f], wd [f, d], h
-// scratch [T, f], out [T, d], all in the same type, contiguous and 16-byte
-// aligned. Returns 0 or the cudaError_t of the refused launch; -1 for a bad
-// dtype.
+namespace tcmlp {
+
+using tc::bf16;
+
+constexpr int kBM = 128;          // rows of a block tile: two warpgroups of 64
+constexpr int kBN = 128;          // output columns of a block tile (each table)
+constexpr int kBK = 64;           // reduction values of one ring stage
+constexpr int kThreads = 256;
+constexpr int kATile = kBM * kBK;   // [128 rows][64 k] K-major: 16 KB
+constexpr int kBTile = kBK * kBN;   // [64 k][128 n] MN-major: two 8 KB blocks
+constexpr int kColBlock = kBK * 64; // values of one 64-column block
+constexpr int kUpStages = 4;        // 48 KB a stage: one block an SM
+constexpr int kDownStages = 3;      // 32 KB a stage: two blocks an SM
+constexpr int kMaxSlices = 16;
+constexpr int kBadPlan = -2;
+
+template <int NMAT>
+struct Tabs {
+  const bf16* p[NMAT];
+};
+
+struct Slices {
+  int n;
+  int lo[kMaxSlices + 1];
+};
+
+template <int NMAT, int STAGES>
+struct Ring {
+  static constexpr int kStage = kATile + NMAT * kBTile;
+  static constexpr size_t kSmem =
+      (size_t)STAGES * kStage * sizeof(bf16) + 1024;  // + base alignment
+};
+
+// The dynamic shared memory rounded up to the 1024-byte alignment the
+// 128-byte swizzle needs.
+__device__ __forceinline__ bf16* aligned_smem(unsigned char* raw) {
+  const uint32_t a = tc::smem_u32(raw);
+  return reinterpret_cast<bf16*>(raw + (((a + 1023) & ~1023u) - a));
+}
+
+// One ring stage, 128-byte swizzled: rows [m0, m0 + a_rows) x reduction
+// [k0, k0 + kBK) of A (lda = its row length), and of each table reduction
+// rows [k0, k0 + kBK) x columns [n0, n0 + kBN) (row length N). Rows >= M,
+// reduction indices >= k_end and columns >= N are zero-filled.
+template <int NMAT>
+__device__ __forceinline__ void load_stage(bf16* st, const bf16* __restrict__ A,
+                                           int M, int lda, int m0, int a_rows,
+                                           const Tabs<NMAT>& B, int N, int n0,
+                                           int k0, int k_end) {
+  char* base = reinterpret_cast<char*>(st);
+  for (int i = threadIdx.x; i < a_rows * 8; i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    const bool ok = m0 + r < M && k0 + c * 8 < k_end;
+    tc::cp_async16(base + tc::sw128(r, c),
+                   ok ? A + (size_t)(m0 + r) * lda + k0 + c * 8 : A, ok);
+  }
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat) {
+    char* bt = base + (size_t)(kATile + mat * kBTile) * sizeof(bf16);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kBK * 16; i += kThreads) {
+      const int r = i >> 4, c = i & 15;
+      const bool ok = k0 + r < k_end && n0 + c * 8 < N;
+      tc::cp_async16(bt + (c >> 3) * (kColBlock * 2) + tc::sw128(r, c & 7),
+                     ok ? B.p[mat] + (size_t)(k0 + r) * N + n0 + c * 8
+                        : B.p[mat],
+                     ok);
+    }
+  }
+}
+
+// acc[mat] = A[m0 + 64 wg .. + 64, k_lo:k_hi] @ B[mat][k_lo:k_hi, n0 .. +
+// 128] for warpgroup wg, k-tiles of kBK in ascending order through the
+// cp.async ring, four wgmma k16 steps a tile. A warpgroup whose 64 rows are
+// all past M copies but does not compute.
+template <int NMAT, int STAGES>
+__device__ __forceinline__ void gemm(float (&acc)[NMAT][64], bf16* smem,
+                                     const bf16* A, int M, int lda, int m0,
+                                     const Tabs<NMAT>& B, int N, int n0,
+                                     int k_lo, int k_hi) {
+  using R = Ring<NMAT, STAGES>;
+  const int wg = threadIdx.x / 128;
+  const int live = min(kBM, M - m0);
+  const int a_rows = (live + 63) / 64 * 64;
+  const bool mine = wg * 64 < live;
+#pragma unroll
+  for (int mat = 0; mat < NMAT; ++mat)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mat][i] = 0.0f;
+  const int n_k = (k_hi - k_lo + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_k)
+      load_stage<NMAT>(smem + s * R::kStage, A, M, lda, m0, a_rows, B, N, n0,
+                       k_lo + s * kBK, k_hi);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    tc::cp_async_wait<STAGES - 2>();  // stage kt has landed (own copies)
+    tc::fence_async_smem();           // ... visible to wgmma
+    __syncthreads();                  // ... everyone's; stage kt-1 is free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < n_k)
+      load_stage<NMAT>(smem + (nxt % STAGES) * R::kStage, A, M, lda, m0,
+                       a_rows, B, N, n0, k_lo + nxt * kBK, k_hi);
+    tc::cp_async_commit();
+    if (!mine) continue;
+    const bf16* st = smem + (kt % STAGES) * R::kStage;
+    const bf16* at = st + wg * 64 * kBK;
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) tc::fence_regs(acc[mat]);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = tc::sw128_desc(at + kk * 16, 16, 1024);
+#pragma unroll
+      for (int mat = 0; mat < NMAT; ++mat) {
+        const uint64_t db = tc::sw128_desc(
+            st + kATile + mat * kBTile + kk * 16 * 64, kColBlock * 2, 1024);
+        tc::wgmma_m64n128k16_bt(acc[mat], da, db, 1);
+      }
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();  // before the stage is refilled
+#pragma unroll
+    for (int mat = 0; mat < NMAT; ++mat) tc::fence_regs(acc[mat]);
+  }
+  tc::cp_async_wait<0>();
+}
+
+// First row of this thread's accumulators: warpgroup, warp, lane / 4.
+__device__ __forceinline__ int acc_row(int m0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  return m0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+}
+
+// h[row][c] = round_bf16(silu(g) * u), g / u = x_row . wg / wu[:, c]
+// grid: (ceil(T / kBM), ceil(f / kBN))
+__global__ void __launch_bounds__(kThreads, 1)
+up_tc(const bf16* __restrict__ x, Tabs<2> w, bf16* __restrict__ h, int T,
+      int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  float acc[2][64];
+  gemm<2, kUpStages>(acc, aligned_smem(smem_raw), x, T, d, m0, w, f, n0, 0,
+                     d);
+  const int r0 = acc_row(m0);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half, e = 4 * j + 2 * half;
+      if (row < T && col < f)
+        *reinterpret_cast<uint32_t*>(h + (size_t)row * f + col) =
+            tc::pack_bf16(moe::silu_mul(acc[0][e], acc[1][e]),
+                          moe::silu_mul(acc[0][e + 1], acc[1][e + 1]));
+    }
+  }
+}
+
+// Slice s of the down product: h_row[lo:hi] . wd[lo:hi, c] in fp32, written to
+// part[s][row][c]; with one slice the output itself, rounded.
+// grid: (ceil(T / kBM), ceil(d / kBN), S)
+__global__ void __launch_bounds__(kThreads, 2)
+down_tc(const bf16* __restrict__ h, Tabs<1> w, Slices sl,
+        float* __restrict__ part, bf16* __restrict__ y, int T, int d, int f) {
+  extern __shared__ unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, s = blockIdx.z;
+  float acc[1][64];
+  gemm<1, kDownStages>(acc, aligned_smem(smem_raw), h, T, f, m0, w, d, n0,
+                       sl.lo[s], sl.lo[s + 1]);
+  const int r0 = acc_row(m0);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (threadIdx.x % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half, e = 4 * j + 2 * half;
+      if (row >= T || col >= d) continue;
+      if (sl.n == 1)
+        *reinterpret_cast<uint32_t*>(y + (size_t)row * d + col) =
+            tc::pack_bf16(acc[0][e], acc[0][e + 1]);
+      else
+        *reinterpret_cast<float2*>(part + ((size_t)s * T + row) * d + col) =
+            make_float2(acc[0][e], acc[0][e + 1]);
+    }
+  }
+}
+
+// y[i] = round_bf16(part[0][i] + part[1][i] + ... + part[S-1][i]), in slice
+// order; n = T * d, a multiple of 4. grid: ceil(n / 4 / 256) x 256
+__global__ void __launch_bounds__(256)
+reduce_tc(const float* __restrict__ part, int S, bf16* __restrict__ y,
+          size_t n) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  float4 a = *reinterpret_cast<const float4*>(part + i);
+  for (int s = 1; s < S; ++s) {
+    const float4 b = *reinterpret_cast<const float4*>(part + s * n + i);
+    a.x += b.x;
+    a.y += b.y;
+    a.z += b.z;
+    a.w += b.w;
+  }
+  *reinterpret_cast<uint2*>(y + i) =
+      make_uint2(tc::pack_bf16(a.x, a.y), tc::pack_bf16(a.z, a.w));
+}
+
+inline int launch(const bf16* x, const bf16* wg, const bf16* wu,
+                  const bf16* wd, bf16* h, float* part, bf16* y, int T, int d,
+                  int f, int n_tile, int k_tile, const int* bounds, int S,
+                  cudaStream_t s) {
+  if (n_tile != kBN || k_tile != kBK || S < 1 || S > kMaxSlices ||
+      d % 8 != 0 || f % 8 != 0 || bounds == nullptr)
+    return kBadPlan;
+  Slices sl;
+  sl.n = S;
+  for (int i = 0; i <= S; ++i) sl.lo[i] = bounds[i];
+  if (sl.lo[0] != 0 || sl.lo[S] != f) return kBadPlan;
+  for (int i = 1; i <= S; ++i)
+    if (sl.lo[i] <= sl.lo[i - 1] || (i < S && sl.lo[i] % kBK != 0))
+      return kBadPlan;
+  if (S > 1 && part == nullptr) return kBadPlan;
+  using UpR = Ring<2, kUpStages>;
+  using DownR = Ring<1, kDownStages>;
+  cudaError_t err = cudaFuncSetAttribute(
+      up_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)UpR::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(down_tc,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DownR::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int rb = moe::ceil_div(T, kBM);
+  up_tc<<<dim3(rb, moe::ceil_div(f, kBN)), kThreads, UpR::kSmem, s>>>(
+      x, Tabs<2>{{wg, wu}}, h, T, d, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  down_tc<<<dim3(rb, moe::ceil_div(d, kBN), S), kThreads, DownR::kSmem, s>>>(
+      h, Tabs<1>{{wd}}, sl, part, y, T, d, f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const size_t n = (size_t)T * d;
+  reduce_tc<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(part, S, y, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcmlp
+
+// The fp32 route (CUDA cores). x [T, d], wg / wu [d, f], wd [f, d], h
+// scratch [T, f], out [T, d], all float32, contiguous and 16-byte aligned.
+// Returns 0 or the cudaError_t of the refused launch; -1 for a dtype other
+// than 0 (float32: bf16 takes swiglu_mlp_tc_launch).
 extern "C" int swiglu_mlp_launch(const void* x, const void* wg, const void* wu,
                                  const void* wd, void* h, void* out, int T,
                                  int d, int f, int dtype, void* stream) {
+  if (dtype != 0) return -1;
   if (T <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return mlp::launch<float>((const float*)x, (const float*)wg,
-                              (const float*)wu, (const float*)wd, (float*)h,
-                              (float*)out, T, d, f, s);
-  if (dtype == 1)
-    return mlp::launch<__nv_bfloat16>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)wg,
-        (const __nv_bfloat16*)wu, (const __nv_bfloat16*)wd, (__nv_bfloat16*)h,
-        (__nv_bfloat16*)out, T, d, f, s);
-  return -1;
+  return mlp::launch<float>((const float*)x, (const float*)wg,
+                            (const float*)wu, (const float*)wd, (float*)h,
+                            (float*)out, T, d, f, (cudaStream_t)stream);
+}
+
+// The bf16 route (tensor cores). x [T, d], wg / wu [d, f], wd [f, d], h
+// scratch [T, f], out [T, d], all bfloat16, contiguous and 16-byte aligned,
+// d and f multiples of 8; part: fp32 scratch [S, T, d] (unused, may be null,
+// when S == 1). The tile plan: n_tile and k_tile must equal the kernel's
+// (64, 64); bounds: a HOST array of S + 1 cut points of f, 0 first and f
+// last, the inner ones multiples of k_tile. Returns 0, the cudaError_t of a
+// refused launch, or -2 for a plan or shape the kernel does not take.
+extern "C" int swiglu_mlp_tc_launch(const void* x, const void* wg,
+                                    const void* wu, const void* wd, void* h,
+                                    void* part, void* out, const int* bounds,
+                                    int T, int d, int f, int n_tile,
+                                    int k_tile, int S, void* stream) {
+  if (T <= 0) return 0;
+  using tc::bf16;
+  return tcmlp::launch((const bf16*)x, (const bf16*)wg, (const bf16*)wu,
+                       (const bf16*)wd, (bf16*)h, (float*)part, (bf16*)out, T,
+                       d, f, n_tile, k_tile, bounds, S, (cudaStream_t)stream);
 }

@@ -83,7 +83,7 @@ def gather_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             out.data_ptr(), T, E, d, f, k, _common.DTYPE_CODES[x.dtype],
             _common.stream_of(x))
     _common.check_launch("gather_swiglu", code)
-    GATHER.LAUNCHES += 1
+    GATHER.count()
     return out
 
 
@@ -114,7 +114,7 @@ def gather_swiglu_q_rows(x: torch.Tensor, qt, idx: torch.Tensor
             y.data_ptr(), T, E, d, f, k, _common.DTYPE_CODES[x.dtype],
             _common.stream_of(x))
     _common.check_launch("gather_swiglu_q", code)
-    GATHER_Q.LAUNCHES += 1
+    GATHER_Q.count()
     return y
 
 

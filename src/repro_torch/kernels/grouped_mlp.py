@@ -76,7 +76,7 @@ def grouped_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             gs32.data_ptr(), h.data_ptr(), out.data_ptr(), T, E, d, f, rows,
             _common.DTYPE_CODES[x.dtype], _common.stream_of(x))
     _common.check_launch("grouped_swiglu", code)
-    GROUPED.LAUNCHES += 1
+    GROUPED.count()
     return out
 
 
@@ -106,5 +106,5 @@ def grouped_swiglu_q(x: torch.Tensor, qt,
             out.data_ptr(), T, E, d, f, rows, _common.DTYPE_CODES[x.dtype],
             _common.stream_of(x))
     _common.check_launch("grouped_swiglu_q", code)
-    GROUPED_Q.LAUNCHES += 1
+    GROUPED_Q.count()
     return out

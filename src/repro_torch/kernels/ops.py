@@ -91,6 +91,11 @@ def launch_counts() -> dict:
     return {name: k.LAUNCHES for name, k in KERNELS.items()}
 
 
+def route_launch_counts() -> dict:
+    """Launches by kernel and route (``cuda_core`` / ``tensor_core``)."""
+    return {name: dict(k.ROUTE_LAUNCHES) for name, k in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.LAUNCHES = 0
+        k.reset()

@@ -84,7 +84,7 @@ def _launch(kernel, symbol, ptrs, q, dims):
             *ptrs, out.data_ptr(), B, nb, bs, nkv, hd, mb, nq // nkv,
             math.sqrt(hd), _common.DTYPE_CODES[q.dtype], _common.stream_of(q))
     _common.check_launch(kernel.name, code)
-    kernel.LAUNCHES += 1
+    kernel.count()
     return out
 
 

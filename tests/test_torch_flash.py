@@ -143,6 +143,62 @@ def test_ops_flash_attention_on_cpu_takes_the_plain_version():
     assert "flash_attention" in ops.KERNELS
 
 
+def test_flash_dtype_route_chooses_the_entry_point_without_launching():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    assert FA.route(torch.bfloat16) == "tensor_core"
+    assert FA.route(torch.float32) == "cuda_core"
+    assert FA.ENTRY == {"tensor_core": "flash_attention_tc_launch",
+                        "cuda_core": "flash_attention_launch"}
+    with pytest.raises(TypeError, match="float16"):
+        FA.route(torch.float16)
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    for symbol in FA.ENTRY.values():
+        assert f'extern "C" int {symbol}(' in src
+    assert FA.FLASH.ROUTE_LAUNCHES == {"tensor_core": 0, "cuda_core": 0}
+
+
+@pytest.mark.parametrize("hd", [8, 24, 40, 272])
+def test_flash_head_widths_the_tensor_core_kernel_does_not_take(hd):
+    """bf16 takes hd a multiple of 16 up to 256, refused before launch;
+    fp32 (the CUDA-core kernel) any hd up to 256."""
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.zeros((1, 4, 5, hd), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 7, hd), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="hd"):
+        FA._check(q, k, k, None, None)
+    if hd <= 256:
+        assert FA._check(q.float(), k.float(), k.float(), None,
+                         None) == "cuda_core"
+    else:
+        with pytest.raises(ValueError, match="hd <= 256"):
+            FA._check(q.float(), k.float(), k.float(), None, None)
+    assert FA.FLASH.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("hd", [16, 48, 128, 256])
+def test_flash_tensor_core_layouts(hd):
+    """Every multiple of 16 up to 256 is taken, in the model's strided
+    layout too; a stride or a base the 16-byte copies cannot follow is
+    refused."""
+    from repro_torch.kernels import flash_attention as FA
+    bf = torch.bfloat16
+    qm = torch.zeros((2, 9, 4, hd), dtype=bf)             # [B, S, H, hd]
+    km = torch.zeros((2, 9, 2, hd), dtype=bf)
+    assert FA._check(qm.transpose(1, 2), km.transpose(1, 2),
+                     km.transpose(1, 2), torch.zeros(2, dtype=torch.int32),
+                     torch.empty((2, 9, 4, hd), dtype=bf).transpose(1, 2)
+                     ) == "tensor_core"
+    wide = torch.zeros((1, 4, 5, hd + 4), dtype=bf)[..., :hd]  # stride hd+4
+    k = torch.zeros((1, 2, 5, hd), dtype=bf)
+    with pytest.raises(ValueError, match="strides multiples of 8"):
+        FA._check(wide, k, k, None, None)
+    flat = torch.zeros(4 * 5 * hd + 8, dtype=bf)
+    shifted = flat[1:1 + 4 * 5 * hd].view(1, 4, 5, hd)   # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte"):
+        FA._check(shifted, k, k, None, None)
+
+
 # ---------------------------------------------------------------------------
 # the model's full-sequence attention
 # ---------------------------------------------------------------------------

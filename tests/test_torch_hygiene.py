@@ -138,3 +138,34 @@ def test_kernel_sources_are_in_the_package_and_build_is_lazy():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "build/" in gitignore
+
+
+def test_kernel_sources_include_no_library_gemm_or_attention():
+    """The kernels are hand-written: no csrc source includes cuBLAS, cuDNN
+    or a CUTLASS device-level GEMM."""
+    import re
+    from repro_torch.kernels import _build
+    banned = re.compile(r"cublas|cudnn|cutlass/gemm/device|cutlass/gemm/kernel"
+                        r"|cutlass/gemm/collective", re.I)
+    for p in sorted(_build.CSRC.iterdir()):
+        for line in p.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert not banned.search(line), f"{p.name}: {line}"
+
+
+def test_tensor_core_header_reaches_both_libraries(tmp_path, monkeypatch):
+    """tc_sm90.cuh is included by swiglu_mlp.cu and flash_attention.cu and
+    hashed into every library's name: an edit to it rebuilds them."""
+    import shutil
+    from repro_torch.kernels import _build
+    for src in ("swiglu_mlp.cu", "flash_attention.cu"):
+        assert '#include "tc_sm90.cuh"' in (_build.CSRC / src).read_text()
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = {n: _build._lib_path(n) for n in ("swiglu_mlp", "flash_attention")}
+    assert _build._source_hash() == _build._source_hash()
+    with open(copy / "tc_sm90.cuh", "a") as fh:
+        fh.write("// edited\n")
+    after = {n: _build._lib_path(n) for n in before}
+    assert all(before[n] != after[n] for n in before)

@@ -295,3 +295,108 @@ def test_dense_family_configs_match_the_reference_widths():
         assert (a.d_model, a.d_ff, a.n_layers, a.vocab_size) == \
             (b.d_model, b.d_ff, b.n_layers, b.vocab_size)
         assert b.family == "dense" and b.moe is None
+
+
+# ---------------------------------------------------------------------------
+# the kernel's routes: the tensor-core tile plan, the dtype route, refusals
+# ---------------------------------------------------------------------------
+
+#: (d, f) of every MLP the port serves: granite-8b, yi-34b, qwen1.5-110b,
+#: kimi-k2's shared expert and the reduced configs
+SERVED_WIDTHS = [(4096, 14336), (7168, 20480), (8192, 49152), (7168, 2048),
+                 (64, 128)]
+
+
+def _csrc(name):
+    from repro_torch.kernels import _build
+    return (_build.CSRC / name).read_text()
+
+
+def _constexpr(src, name):
+    import re
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_tile_plan_constants_are_the_kernels():
+    src = _csrc("swiglu_mlp.cu")
+    assert (SW.N_TILE, SW.K_TILE, SW.MAX_SLICES) == (
+        _constexpr(src, "kBN"), _constexpr(src, "kBK"),
+        _constexpr(src, "kMaxSlices"))
+
+
+def test_tile_plan_never_reads_the_token_count():
+    import inspect
+    assert list(inspect.signature(SW.plan).parameters) == ["d", "f", "n_sms"]
+    assert {f.name for f in dataclasses.fields(SW.Plan)} == {
+        "n_tile", "k_tile", "bounds"}
+    assert SW.plan(4096, 14336, 132) == SW.plan(4096, 14336, 132)
+
+
+@pytest.mark.parametrize("n_sms", [1, 16, 114, 132])
+@pytest.mark.parametrize("d,f", SERVED_WIDTHS)
+def test_tile_plan_partitions_f_and_covers_the_columns(d, f, n_sms):
+    p = SW.plan(d, f, n_sms)
+    b = p.bounds
+    assert b[0] == 0 and b[-1] == f and 1 <= p.slices <= SW.MAX_SLICES
+    assert all(lo < hi for lo, hi in zip(b, b[1:]))       # no empty slice
+    assert all(x % p.k_tile == 0 for x in b[:-1])          # whole k-tiles
+    k_tiles = [-(-(hi - lo) // p.k_tile) for lo, hi in zip(b, b[1:])]
+    assert max(k_tiles) - min(k_tiles) <= 1                # dealt evenly
+    cols = -(-d // p.n_tile)
+    # as many slices as fit on the card at once, or one per k-tile
+    assert (cols * p.slices <= SW.DOWN_BLOCKS_PER_SM * n_sms
+            or p.slices == 1)
+    assert (p.slices == SW.MAX_SLICES or p.slices == -(-f // p.k_tile)
+            or cols * (p.slices + 1) > SW.DOWN_BLOCKS_PER_SM * n_sms)
+    for width in (d, f):
+        tiles = p.column_tiles(width)
+        assert tiles[0][0] == 0 and tiles[-1][1] == width
+        assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+        assert all(0 < hi - lo <= p.n_tile for lo, hi in tiles)
+
+
+def test_granite_plan_fills_the_card():
+    """granite-8b on 132 SMs: 32 column tiles of the down pass x 8 slices =
+    264 blocks, two on every SM."""
+    p = SW.plan(4096, 14336, 132)
+    assert p.slices == 8 and len(p.column_tiles(4096)) == 32
+    assert len(p.column_tiles(14336)) == 112
+
+
+def test_dtype_route_chooses_the_entry_point_without_launching():
+    assert SW.route(torch.bfloat16) == "tensor_core"
+    assert SW.route(torch.float32) == "cuda_core"
+    assert SW.ENTRY == {"tensor_core": "swiglu_mlp_tc_launch",
+                        "cuda_core": "swiglu_mlp_launch"}
+    with pytest.raises(TypeError, match="float16"):
+        SW.route(torch.float16)
+    src = _csrc("swiglu_mlp.cu")
+    for symbol in SW.ENTRY.values():
+        assert f'extern "C" int {symbol}(' in src
+    # both routes count their launches apart; nothing launched here
+    assert SW.SWIGLU.ROUTE_LAUNCHES == {"tensor_core": 0, "cuda_core": 0}
+    assert ops.route_launch_counts()["swiglu_mlp"] == SW.SWIGLU.ROUTE_LAUNCHES
+
+
+@pytest.mark.parametrize("d,f", [(20, 32), (24, 36), (23, 31)])
+def test_bf16_widths_not_multiples_of_8_are_refused(d, f):
+    _, (x, wg, wu, wd) = _inputs(3, d, f, "bfloat16")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        SW._check(x, wg, wu, wd)
+    _, (x, wg, wu, wd) = _inputs(3, d, f, "float32")
+    assert SW._check(x, wg, wu, wd) == (3, d, f)       # the CUDA-core route
+    assert SW.SWIGLU.LAUNCHES == 0
+
+
+def test_route_counts_reset_with_the_launch_counts():
+    kern = SW.SWIGLU
+    kern.count("tensor_core")
+    kern.count("cuda_core")
+    kern.count("tensor_core")
+    try:
+        assert kern.LAUNCHES == 3
+        assert ops.route_launch_counts()["swiglu_mlp"] == {
+            "tensor_core": 2, "cuda_core": 1}
+    finally:
+        ops.reset_launch_counts()
+    assert kern.LAUNCHES == 0 and set(kern.ROUTE_LAUNCHES.values()) == {0}
