@@ -37,15 +37,25 @@ one JSON line:
             calls replayed from a CUDA graph);
             swiglu_mlp at widths past granite's f (yi-34b, qwen1.5-110b) and
             kimi-k2's shared expert, a row alone == among 8, 64 and 256
-            bitwise, timed at granite's decode and admission shapes beside
-            the cuBLAS composition the model's MLP ran before it. Both kernels
-            route by dtype: bf16 to their tensor-core kernels, fp32 to the
-            CUDA-core ones (each route held to the plain version and timed;
-            in fp32 swiglu_mlp == grouped_swiglu with one group, bitwise);
-            shapes the tensor-core kernels do not take (d or f not a multiple
-            of 8, hd not a multiple of 16, hd above 256) are refused before
-            launch. The threefry bits and uniforms on the card == on the
-            CPU, the Gumbel noise to 2 ulps of max(|g|, 1)
+            bitwise (with and without round_gu, the model's rounding of g
+            and u, which is also held bitwise to the plain version on inputs
+            whose sums are exact), timed at granite's decode and admission
+            shapes beside
+            the cuBLAS composition the model's MLP ran before it. Four
+            kernels route: flash_attention and swiglu_mlp by dtype, bf16 to
+            their tensor-core kernels, fp32 to the CUDA-core ones (each route
+            held to the plain version and timed; in fp32 swiglu_mlp ==
+            grouped_swiglu with one group, bitwise); shapes the tensor-core
+            kernels do not take (d or f not a multiple of 8, hd not a
+            multiple of 16, hd above 256) are refused before launch.
+            gather_swiglu and grouped_swiglu by dtype and width: bf16 at
+            widths that are multiples of 8 to their tensor-core kernels
+            (held to the plain version at bf16 and at fp32, a row bitwise the
+            same alone, among 8, 64 and 2048 and in a segment of 1 or 100,
+            timed beside their CUDA-core kernels), anything else to the
+            CUDA-core ones. The threefry bits
+            and uniforms on the card == on the CPU, the Gumbel noise to 2
+            ulps of max(|g|, 1)
   contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
             prompt admitted alone and in a group of four gives bitwise-equal
             logits (and what that costs per admission group); paged == dense
@@ -73,8 +83,12 @@ one JSON line:
             bf16, random weights: the contracts (fused K == stepwise and a
             prompt alone == in a group of four on logits, paged == dense on
             admission and decode logits, bitwise; decode_block=8 == 1 token
-            for token at temperature 0.7) and the logit gap of the kernel's
-            MLP against the cuBLAS MLP it replaced; then the trace served with
+            for token at temperature 0.7; layer 0's MLP on the card with
+            round_gu closer to the CPU's model arithmetic, bitwise share of
+            outputs, than the kernel contract) and, a reading, the logit gap
+            of the model's MLP on the card (round_gu) and of the kernel
+            contract against the cuBLAS MLP it replaced, for two sets of
+            inputs; then the trace served with
             the dense cache, the paged pool (prefix hits) and the paged int8
             pool, greedy, and the dense cache at temperature 0.7
   compress  MergeMoE on qwen3-moe-30b-a3b at full width, depth cut to 4
@@ -90,7 +104,8 @@ one JSON line:
 
 then a ``{"kernels": [...]}`` line (times, bounds and the main path's launch
 counts, by route too: the bf16 main path must launch only the tensor-core
-kernels of flash_attention and swiglu_mlp), the card's name and power limit,
+kernels of flash_attention, swiglu_mlp, gather_swiglu and grouped_swiglu),
+the card's name and power limit,
 and ``{"ok": true, ...}`` last. Any
 failing check raises: nothing is caught and no kernel failure is answered by
 the plain version.
@@ -457,10 +472,29 @@ def flash_invariance(gen, dev, dtype) -> dict:
     return out
 
 
+def took_route(kernel, rows: int, d: int, f: int, dtype, fn):
+    """``fn()``, a call of ``kernel``'s wrapper over ``rows`` rows, launched
+    once on the route of (dtype, d, f) and on no other (no launch for no
+    rows). Returns what it returned."""
+    from repro_torch.kernels import moe_tc
+    before = dict(kernel.ROUTE_LAUNCHES)
+    out = fn()
+    want = dict(before)
+    if rows > 0:
+        want[moe_tc.route(dtype, d, f)] += 1
+    check(kernel.ROUTE_LAUNCHES == want,
+          f"{kernel.name}: launches by route {kernel.ROUTE_LAUNCHES}, expected "
+          f"{want} (d={d}, f={f}, {dtype_key(dtype)})")
+    return out
+
+
 def case_list(dev):
     """The case lists of tests/test_torch_kernels.py, test_torch_kernels_q.py,
     test_torch_paged_attention.py, test_torch_flash.py and the reference's
-    swiglu cases at their reduced shapes, for all eight kernels."""
+    swiglu cases at their reduced shapes, for all eight kernels. The bf16
+    gather / grouped cases take the tensor-core route at widths that are
+    multiples of 8 and the CUDA-core one at the odd widths (checked per
+    call), and are held to the plain version at fp32 as well."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import decode_moe, grouped_mlp, ops
     from repro_torch.kernels import swiglu as SW
@@ -484,11 +518,17 @@ def case_list(dev):
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
             wg, wu, wd = tables(gen, E, d, f, dtype, dev)
             gs = torch.tensor(sizes, device=dev)
-            got = grouped_mlp.grouped_swiglu(x, wg, wu, wd, gs)
+            got = took_route(grouped_mlp.GROUPED, T, d, f, dtype,
+                             lambda: grouped_mlp.grouped_swiglu(x, wg, wu, wd,
+                                                                gs))
+            plain = ops.KERNELS["grouped_swiglu"].plain
             err, _ = compare(f"grouped_swiglu[{name},{key}]", got,
-                             ops.KERNELS["grouped_swiglu"].plain(
-                                 x, wg, wu, wd, gs), dtype)
+                             plain(x, wg, wu, wd, gs), dtype)
             note("grouped_swiglu", err)
+            if dtype == torch.bfloat16:
+                want = plain(x.float(), wg.float(), wu.float(), wd.float(), gs)
+                compare(f"grouped_swiglu[{name},{key}] vs fp32", got, want,
+                        dtype, moe_tol32(want))
             qt = Q.quantize_expert_tables(wg, wu, wd)
             got = grouped_mlp.grouped_swiglu_q(x, qt, gs)
             err, _ = compare(f"grouped_swiglu_q[{name},{key}]", got,
@@ -505,11 +545,18 @@ def case_list(dev):
                 idx = torch.tensor(idx, device=dev)
             idx = idx.to(torch.int32)
             w = torch.softmax(torch.randn((T, k), generator=gen, device=dev), -1)
-            got = decode_moe.gather_swiglu(x, wg, wu, wd, idx, w)
+            got = took_route(decode_moe.GATHER, T * k, d, f, dtype,
+                             lambda: decode_moe.gather_swiglu(x, wg, wu, wd,
+                                                              idx, w))
+            plain = ops.KERNELS["gather_swiglu"].plain
             err, _ = compare(f"gather_swiglu[{name},{key}]", got,
-                             ops.KERNELS["gather_swiglu"].plain(
-                                 x, wg, wu, wd, idx, w), dtype)
+                             plain(x, wg, wu, wd, idx, w), dtype)
             note("gather_swiglu", err)
+            if dtype == torch.bfloat16:
+                want = plain(x.float(), wg.float(), wu.float(), wd.float(),
+                             idx, w)
+                compare(f"gather_swiglu[{name},{key}] vs fp32", got, want,
+                        dtype, moe_tol32(want))
             qt = Q.quantize_expert_tables(wg, wu, wd)
             got = decode_moe.gather_swiglu_q(x, qt, idx, w)
             err, _ = compare(f"gather_swiglu_q[{name},{key}]", got,
@@ -714,6 +761,157 @@ def sort_pairs(idx, E, k):
     return order, inv, torch.bincount(flat, minlength=E)
 
 
+#: the numbers of a MoE kernel's record that ride along beside its main one
+MOE_TIMED_KEYS = ("shape", "experts_hit", "max_err", "ms", "device_ms",
+                  "plain_ms", "bound_ms", "bound_by", "previous_ms",
+                  "previous_device_ms")
+
+
+def moe_tol32(want: torch.Tensor):
+    """A bf16 MoE kernel against its plain version fed the same inputs
+    widened to fp32 (exactly), which rounds nothing before the output: the
+    kernel rounds h, each pair's y and the output to bf16, half an ulp each
+    and not correlated: two bf16 ulps of max|y|."""
+    scale = max(float(want.float().abs().max()), 1e-6) if want.numel() else 1.0
+    return 0.0, 2 * scale / 128, ("vs the plain version at fp32 (the kernel "
+                                  "rounds h, y and the output to bf16): atol "
+                                  "2 bf16 ulps of max|y|")
+
+
+def previous_moe(name, x, wg, wu, wd, ids, w=None):
+    """One call of the CUDA-core kernel that the bf16 route ran before its
+    tensor-core one (the ``previous_ms`` yardstick), through its C entry
+    point and not its wrapper (so no launch is counted; the wrappers never
+    reach it in bf16 at these widths). ``name``: gather_swiglu (ids: idx
+    [T, k], w [T, k]) or grouped_swiglu (ids: group sizes [E])."""
+    from repro_torch.kernels import _common, grouped_mlp
+    T, d = x.shape
+    E, _, f = wg.shape
+    out = torch.empty_like(x)
+    ptrs = [x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr()]
+    if name == "gather_swiglu":
+        k = ids.shape[1]
+        idx32 = ids.to(torch.int32).contiguous()
+        w32 = w.to(torch.float32).contiguous()
+        h = torch.empty((T * k, f), dtype=x.dtype, device=x.device)
+        y = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
+        ptrs += [idx32.data_ptr(), w32.data_ptr(), h.data_ptr(), y.data_ptr()]
+        ints = [T, E, d, f, k]
+    else:
+        gs32 = ids.to(torch.int32).contiguous()
+        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
+        ptrs += [gs32.data_ptr(), h.data_ptr()]
+        ints = [T, E, d, f]
+    ptrs.append(out.data_ptr())
+    tail = [] if name == "gather_swiglu" else [grouped_mlp.rows_per_block(d, f)]
+    tail.append(_common.DTYPE_CODES[x.dtype])
+    fn = _common.launcher(f"{name}_launch", len(ptrs), len(ints) + len(tail))
+    _common.check_launch(name, fn(*ptrs, *ints, *tail, _common.stream_of(x)))
+    return out
+
+
+def moe_tc_timings(name, x, wg, wu, wd, ids, w=None) -> dict:
+    """The CUDA-core kernel the bf16 route ran before (``previous_ms``),
+    timed in this run beside the tensor-core kernels."""
+    def previous():
+        return previous_moe(name, x, wg, wu, wd, ids, w)
+    return dict(previous_ms=time_ms(previous, reps=10),
+                previous_device_ms=graph_ms(previous, calls=10))
+
+
+def gather_tc_checks(gen, n_orig, x, wg, wu, wd, idx, w, got) -> dict:
+    """bf16 gather on tensor cores: against the plain version at fp32; a
+    token's row alone == among the 8 slots == among 64 tokens, and a token's
+    row among 128 pairs of one expert (two 64-row tiles, held to the plain
+    version too) == alone, bitwise."""
+    from repro_torch.kernels import decode_moe, ops
+    plain = ops.KERNELS["gather_swiglu"].plain
+    T, d = x.shape
+    k, E = idx.shape[1], wg.shape[0]
+    dev, dtype = x.device, x.dtype
+    want32 = plain(x.float(), wg.float(), wu.float(), wd.float(), idx, w)
+    err32, words32 = compare(f"gather_swiglu[T={T},E={E},bfloat16] vs fp32",
+                             got, want32, dtype, moe_tol32(want32))
+
+    def gather(rows, ids, ws):
+        return decode_moe.gather_swiglu(rows, wg, wu, wd, ids, ws)
+
+    def tokens(n, ids=None):
+        xn = (torch.randn((n, d), generator=gen, device=dev) * 0.5).to(dtype)
+        if ids is None:
+            ids = route_like_the_model(gen, n, k, n_orig, E, dev)
+        return xn, ids, torch.softmax(torch.randn((n, k), generator=gen,
+                                                  device=dev), -1)
+    alone = gather(x[3:4], idx[3:4], w[3:4])
+    xm, im, wm = tokens(64 - T)
+    many = gather(torch.cat([x, xm]), torch.cat([idx, im]),
+                  torch.cat([w, wm]))
+    x16, i16, w16 = tokens(16, torch.full((16, k), int(idx[0, 0]),
+                                          dtype=torch.int32, device=dev))
+    two_tiles = gather(x16, i16, w16)
+    compare(f"gather_swiglu[16 x {k} pairs of one expert,E={E},bfloat16]",
+            two_tiles, plain(x16, wg, wu, wd, i16, w16), dtype)
+    one = gather(x16[9:10], i16[9:10], w16[9:10])
+    torch.cuda.synchronize()
+    inv = dict(row_alone_vs_among_8_tokens=bool(torch.equal(alone[0], got[3])),
+               among_8_vs_among_64_tokens=bool(torch.equal(many[:T], got)),
+               row_alone_vs_among_128_pairs_of_one_expert=bool(
+                   torch.equal(one[0], two_tiles[9])))
+    check(all(inv.values()), f"gather_swiglu (tensor cores, E={E}): a row's "
+                             f"bits depend on its neighbours: {inv}")
+    return dict(max_err_vs_plain_fp32=err32, tol_vs_plain_fp32=words32,
+                invariance_bitwise=inv,
+                **moe_tc_timings("gather_swiglu", x, wg, wu, wd, idx, w))
+
+
+def grouped_tc_checks(gen, xs, wg, wu, wd, gs, got) -> dict:
+    """bf16 grouped on tensor cores: against the plain version at fp32; rows
+    alone (a segment of 1) == among 8 == among 64 == among all, and the rows
+    of a segment of 100 rows of one expert (two 64-row tiles, held to the
+    plain version too) == each alone, bitwise."""
+    from repro_torch.kernels import grouped_mlp, ops
+    from repro_torch.kernels.ref import rows_to_experts
+    plain = ops.KERNELS["grouped_swiglu"].plain
+    T, d = xs.shape
+    E = wg.shape[0]
+    dev, dtype = xs.device, xs.dtype
+    want32 = plain(xs.float(), wg.float(), wu.float(), wd.float(), gs)
+    err32, words32 = compare(f"grouped_swiglu[T={T},E={E},bfloat16] vs fp32",
+                             got, want32, dtype, moe_tol32(want32))
+
+    def grouped(rows, sizes):
+        return grouped_mlp.grouped_swiglu(rows.contiguous(), wg, wu, wd, sizes)
+
+    def one_group(e, n):
+        sizes = torch.zeros((E,), dtype=torch.int32, device=dev)
+        sizes[e] = n
+        return sizes
+    eid = rows_to_experts(gs, T)
+    rows = (0, 5, T - 1)
+    alone = [grouped(xs[i:i + 1], one_group(int(eid[i]), 1)) for i in rows]
+    cum = torch.cumsum(gs, 0)
+    among = {n: grouped(xs[:n], cum.clamp(max=n) - (cum - gs).clamp(max=n))
+             for n in (8, 64)}
+    x100 = (torch.randn((100, d), generator=gen, device=dev) * 0.5).to(dtype)
+    seg = grouped(x100, one_group(int(eid[0]), 100))
+    compare(f"grouped_swiglu[segment of 100,E={E},bfloat16]", seg,
+            plain(x100, wg, wu, wd, one_group(int(eid[0]), 100)), dtype)
+    singles = {i: grouped(x100[i:i + 1], one_group(int(eid[0]), 1))
+               for i in (0, 63, 64, 99)}
+    torch.cuda.synchronize()
+    inv = dict(row_alone_vs_among_all=all(
+        torch.equal(a[0], got[i]) for a, i in zip(alone, rows)),
+        **{f"among_{n}_vs_among_all": bool(torch.equal(y, got[:n]))
+           for n, y in among.items()},
+        segment_of_1_vs_segment_of_100=all(
+            torch.equal(y[0], seg[i]) for i, y in singles.items()))
+    check(all(inv.values()), f"grouped_swiglu (tensor cores, E={E}): a row's "
+                             f"bits depend on its neighbours: {inv}")
+    return dict(max_err_vs_plain_fp32=err32, tol_vs_plain_fp32=words32,
+                invariance_bitwise=inv,
+                **moe_tc_timings("grouped_swiglu", xs, wg, wu, wd, gs))
+
+
 def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
     """Every kernel at the shapes the serve phase gives it, full width."""
     from repro_torch.core import quant as Q
@@ -721,10 +919,11 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import ref
     from repro_torch.kernels.ref import combine_in_order
+    from repro_torch.kernels import moe_tc
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     N, k = cfg.moe.n_experts, cfg.moe.top_k
     gen = torch.Generator(device=dev).manual_seed(7)
-    checks, entries = [], {}
+    checks, entries, records = [], {}, {}
     quant_bitwise = None
     for dtype in (torch.bfloat16, torch.float32):
         key = dtype_key(dtype)
@@ -761,17 +960,21 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
             bitwise = bool(torch.equal(got, via_grouped))
             check(bitwise, f"gather != grouped bitwise at E={E}, {key}")
             b_ms, by = bound_ms(dtype, T * k, hit, d, f, io)
+
+            def gather():
+                return decode_moe.gather_swiglu(x, wg, wu, wd, idx, w)
             rec = dict(name="gather_swiglu", shape=f"T={T} k={k} E={E} d={d} "
-                       f"f={f} {key}", experts_hit=hit, max_err=err, tol=words,
-                       ms=time_ms(lambda: decode_moe.gather_swiglu(
-                           x, wg, wu, wd, idx, w), reps=20),
+                       f"f={f} {key}", route=moe_tc.route(dtype, d, f),
+                       experts_hit=hit, max_err=err, tol=words,
+                       ms=time_ms(gather, reps=20), device_ms=graph_ms(gather),
                        bound_ms=b_ms, bound_by=by,
                        plain_ms=time_ms(lambda: plain(x, wg, wu, wd, idx, w),
                                         reps=3, rounds=3),
                        bitwise_vs_grouped=bitwise)
+            if dtype == torch.bfloat16:
+                rec.update(gather_tc_checks(gen, N, x, wg, wu, wd, idx, w, got))
             checks.append(rec)
-            if dtype == torch.bfloat16 and E == N:
-                entries["gather_swiglu"] = rec
+            records[("gather_swiglu", dtype, E)] = rec
             # ---- the int8 gather: per-pair rows [T, k, d], combine outside
             rows = decode_moe.gather_swiglu_q_rows(x, qt, idx)
             err, words = compare(f"gather_swiglu_q[T={T},E={E},{key}]", rows,
@@ -796,8 +999,7 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                            x, qt, idx), reps=3, rounds=3),
                        bitwise_vs_grouped=bitwise_q)
             checks.append(rec)
-            if dtype == torch.bfloat16 and E == N:
-                entries["gather_swiglu_q"] = rec
+            records[("gather_swiglu_q", dtype, E)] = rec
             # ---- grouped: the largest admission row of the serve phase
             Tg = admission_rows
             xg = (torch.randn((Tg // k, d), generator=gen, device=dev)
@@ -815,7 +1017,8 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                 plain = ops.KERNELS[name].plain
                 pfn = ((lambda: plain(xs, qt, gs_g)) if int8
                        else (lambda: plain(xs, wg, wu, wd, gs_g)))
-                err, words = compare(f"{name}[T={Tg},E={E},{key}]", fn(), pfn(),
+                got = fn()
+                err, words = compare(f"{name}[T={Tg},E={E},{key}]", got, pfn(),
                                      dtype)
                 b_ms, by = bound_ms(dtype, Tg, hit, d, f,
                                     2 * Tg * d * size + E * 4, int8=int8)
@@ -824,12 +1027,28 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                            experts_hit=hit, max_err=err, tol=words,
                            ms=time_ms(fn, reps=3, rounds=3), bound_ms=b_ms,
                            bound_by=by, plain_ms=time_ms(pfn, reps=1, rounds=3))
+                if not int8:
+                    rec.update(route=moe_tc.route(dtype, d, f),
+                               device_ms=graph_ms(fn, calls=10))
+                    if dtype == torch.bfloat16:
+                        rec.update(grouped_tc_checks(gen, xs, wg, wu, wd, gs_g,
+                                                     got))
                 checks.append(rec)
-                if dtype == torch.bfloat16 and E == N:
-                    entries[name] = rec
+                records[(name, dtype, E)] = rec
             del wg, wu, wd, qt, xs
         del full
         free()
+    # the main entries: bf16 at E = N; the merged shape (E = N / 2) and, for
+    # the routed pair, the fp32 CUDA-core route ride along
+    for name in ("gather_swiglu", "grouped_swiglu", "gather_swiglu_q",
+                 "grouped_swiglu_q"):
+        entries[name] = dict(records[(name, torch.bfloat16, N)], merged_shape={
+            key: val for key, val in records[(name, torch.bfloat16, N // 2)]
+            .items() if key in MOE_TIMED_KEYS})
+        if name in ROUTED:
+            entries[name]["cuda_core_route"] = {
+                key: val for key, val in records[(name, torch.float32, N)]
+                .items() if key in MOE_TIMED_KEYS}
     # ---- paged attention at the serve shape: 8 slots, 32 / 4 heads, hd 128,
     # blocks of KV_BLOCK rows, s_max 512, lens of a decode step of the trace
     B, nq, nkv, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -976,8 +1195,11 @@ def swiglu_main_shapes(dev, admission_rows: int):
     admission a row's result is the same alone, among 8, among 64 and among
     256, bitwise; in fp32 the kernel == grouped_swiglu with one group,
     bitwise (the two share the CUDA-core arithmetic; in bf16 the tensor-core
-    route is held to its plain version instead). Returns the records and the
-    bf16 ones by label, with the fp32 decode record under "fp32"."""
+    route is held to its plain version instead). The same with ``round_gu``
+    (the model's arithmetic, which ``mlp_apply`` runs) at the two bf16
+    shapes, rows invariant in both settings, and ``round_gu`` the identity in
+    fp32. Returns the records and the bf16 ones by label, with the fp32
+    decode record under "fp32"."""
     from repro_torch import configs
     from repro_torch.kernels import grouped_mlp, ops
     from repro_torch.kernels import swiglu as SW
@@ -1025,30 +1247,50 @@ def swiglu_main_shapes(dev, admission_rows: int):
                                "torch.mm x2, silu * mul, torch.mm, the "
                                "model's MLP before this kernel")
             entries[label if dtype == torch.bfloat16 else "fp32"] = rec
+        if timed and dtype == torch.bfloat16:
+            # the model's arithmetic (g and u rounded), what mlp_apply runs
+            got_r = SW.swiglu_mlp(x, wg, wu, wd, round_gu=True)
+            err_r, words_r = compare(
+                f"swiglu_mlp[{label},{key},round_gu]", got_r,
+                plain(x, wg, wu, wd, round_gu=True), dtype)
+            rec["round_gu"] = dict(
+                max_err=err_r, tol=words_r,
+                ms=time_ms(lambda: SW.swiglu_mlp(x, wg, wu, wd, round_gu=True),
+                           reps=10),
+                device_ms=graph_ms(lambda: SW.swiglu_mlp(
+                    x, wg, wu, wd, round_gu=True), calls=10))
         if label == "admission":
-            # rows alone and among 8, 64 and all T, bitwise
+            # rows alone and among 8, 64 and all T, bitwise, with and
+            # without round_gu
             rows = (0, 5, T - 1)
-            alone = [SW.swiglu_mlp(x[i:i + 1], wg, wu, wd) for i in rows]
-            among = {n: SW.swiglu_mlp(x[:n].contiguous(), wg, wu, wd)
-                     for n in (8, 64)}
-            torch.cuda.synchronize()
-            rec["row_alone_vs_among_all_bitwise"] = all(
-                torch.equal(a[0], got[i]) for a, i in zip(alone, rows))
-            for n, y in among.items():
-                rec[f"among_{n}_vs_among_all_bitwise"] = bool(
-                    torch.equal(y, got[:n]))
-            check(rec["row_alone_vs_among_all_bitwise"]
-                  and rec["among_8_vs_among_all_bitwise"]
-                  and rec["among_64_vs_among_all_bitwise"],
-                  "swiglu_mlp: a row differs alone and among other rows")
+            for option, full in ((False, got), (True, got_r)):
+                def mlp(a):
+                    return SW.swiglu_mlp(a.contiguous(), wg, wu, wd,
+                                         round_gu=option)
+                alone = [mlp(x[i:i + 1]) for i in rows]
+                among = {n: mlp(x[:n]) for n in (8, 64)}
+                torch.cuda.synchronize()
+                inv = {"row_alone_vs_among_all_bitwise": all(
+                    torch.equal(a[0], full[i]) for a, i in zip(alone, rows)),
+                    **{f"among_{n}_vs_among_all_bitwise": bool(
+                        torch.equal(y, full[:n])) for n, y in among.items()}}
+                (rec["round_gu"] if option else rec).update(inv)
+                check(all(inv.values()), f"swiglu_mlp (round_gu={option}): a "
+                                         f"row differs alone and among other "
+                                         f"rows")
         if dtype == torch.float32 and label == "decode":
             one = grouped_mlp.grouped_swiglu(
                 x, wg[None], wu[None], wd[None],
                 torch.tensor([T], dtype=torch.int32, device=dev))
+            same = SW.swiglu_mlp(x, wg, wu, wd, round_gu=True)
             torch.cuda.synchronize()
             rec["bitwise_vs_grouped_one_group"] = bool(torch.equal(got, one))
+            rec["round_gu_is_the_identity_bitwise"] = bool(
+                torch.equal(got, same))
             check(rec["bitwise_vs_grouped_one_group"],
                   "swiglu_mlp != grouped_swiglu with one group, bitwise (fp32)")
+            check(rec["round_gu_is_the_identity_bitwise"],
+                  "swiglu_mlp: round_gu changed an fp32 result")
         recs.append(rec)
         del wg, wu, wd, x
         free()
@@ -1196,8 +1438,10 @@ def serve(cfg, model, trace, device, **ec_kw):
                          else None))
 
 
-#: kernels with a tensor-core route (bf16) beside their CUDA-core one (fp32)
-ROUTED = ("flash_attention", "swiglu_mlp")
+#: kernels with a tensor-core route (bf16; for the MoE pair, at widths that
+#: are multiples of 8, as every served config's) beside their CUDA-core one
+#: (fp32)
+ROUTED = ("flash_attention", "swiglu_mlp", "gather_swiglu", "grouped_swiglu")
 
 
 def check_launches(res, n_layers: int, dispatch: str = "gather",
@@ -1213,9 +1457,9 @@ def check_launches(res, n_layers: int, dispatch: str = "gather",
     and paged); the paged kernel of the pool's type once per decode step and
     layer, where the dense cache's decode runs the bf16 one over a contiguous
     table; every other kernel never (qwen3-moe has no shared expert, so no
-    swiglu_mlp). Each launch of flash_attention and swiglu_mlp took the route
-    of the model's dtype: the tensor-core kernels in bf16, the CUDA-core ones
-    in fp32."""
+    swiglu_mlp). Each launch of a ROUTED kernel took the route of the
+    model's dtype: the tensor-core kernels in bf16, the CUDA-core ones in
+    fp32."""
     steps = res["n_blocks"] * res["steps_per_block"]
     rows = sum(shape[0] for shape in res["admits"])
     sfx = "_q" if experts == "int8" else ""
@@ -1452,9 +1696,14 @@ def cpu_witness(args, full_cfg, device):
         seconds=time.perf_counter() - t0)
 
 
+#: the device kernels of gather_swiglu's tensor-core route, the bf16 one
+GATHER_KERNEL_NAMES = ("gather_up_tc", "gather_down_tc", "combine_kernel")
+
+
 def profile_block(cfg, model, trace, device):
     """One steady decode block (8 slots busy) under torch.profiler: host wall
-    time, the device's busy share, and the kernels that take the device time."""
+    time, the device's busy share, the kernels that take the device time and
+    gather_swiglu's share of it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
     eng = Engine(engine_config(), cfg=cfg, params=model, device=device)
@@ -1478,9 +1727,12 @@ def profile_block(cfg, model, trace, device):
     if busy_ms == 0.0:
         return dict(wall_ms=wall_ms, device="not measured (the profiler saw "
                     "no device time)")
+    gather_ms = sum(dev_us(e) for e in rows
+                    if any(n in e.key for n in GATHER_KERNEL_NAMES)) / 1e3
     return dict(wall_ms=wall_ms, steps=eng.ec.decode_block, layers=cfg.n_layers,
                 device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-                device_kernels=n_kernels,
+                device_kernels=n_kernels, gather_swiglu_ms=gather_ms,
+                gather_swiglu_share_of_busy=gather_ms / busy_ms,
                 top=[dict(name=e.key[:60], count=e.count, ms=dev_us(e) / 1e3)
                      for e in rows[:8]])
 
@@ -1691,10 +1943,10 @@ def dense_decode_ab(cfg, model, device, lens, pairs: int = 10) -> dict:
     return dict(layers=cfg.n_layers, slots=B, steps=8, **out)
 
 
-def contract_inputs(cfg, device):
+def contract_inputs(cfg, device, seed: int = 3):
     """Eight prompts of up to 64 tokens, their next tokens, all slots active;
     and the engine's dispatch for 8 slots."""
-    gen = torch.Generator(device=device).manual_seed(3)
+    gen = torch.Generator(device=device).manual_seed(seed)
     B, S = 8, 64
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
     lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
@@ -1840,36 +2092,126 @@ def contracts(cfg, model, device, lens):
                 dense_decode_block_ms=decode_ab)
 
 
-def mlp_logit_gap(cfg, model, toks, lengths, tok, act, device) -> dict:
-    """Admission and decode logits with the model's MLP through the
-    swiglu_mlp kernel (g and u fp32) against the cuBLAS MLP it replaced (g
-    and u rounded to bf16): a reading of what the kernel's contract changes,
-    not a fault."""
+#: mlp_logit_gap on an H100 80GB HBM3 at 700 W before mlp_apply set
+#: round_gu (the kernel's MLP kept g and u in fp32): max |logit gap| against
+#: the cuBLAS MLP and the share of rows whose argmax agreed (PERF.md §6)
+EARLIER_MLP_GAP = {"admission": (0.117, 7 / 8), "decode": (0.127, 8 / 8)}
+
+
+def mlp_vs_cpu_model(p, device) -> dict:
+    """C6 held where the repair can be seen: granite's layer-0 MLP at full
+    width on 64 rows of N(0, 1), the card's kernel with ``round_gu`` (the
+    model's MLP) and with the kernel contract (g and u in fp32) against the
+    model's arithmetic on the CPU (``mlp_apply`` on the same bf16 inputs):
+    the share of output elements bitwise equal to the CPU's. Only the order
+    of the fp32 sums differs between the card's ``round_gu`` and the CPU, so
+    its share must be the larger."""
+    from repro_torch.kernels import swiglu as SW
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=device).manual_seed(19)
+    x = torch.randn((64, p.wg.shape[0]), generator=gen,
+                    device=device).to(p.wg.dtype)
+    cpu = types.SimpleNamespace(wg=p.wg.cpu(), wu=p.wu.cpu(), wd=p.wd.cpu())
+    want = L.mlp_apply(cpu, x.cpu())
+    res = {}
+    for name, option in (("model_round_gu", True), ("kernel_contract", False)):
+        got = SW.mlp(x, p.wg, p.wu, p.wd, round_gu=option).cpu()
+        res[name] = dict(share_bitwise_equal=float((got == want).float()
+                                                   .mean()),
+                         max_abs_gap=float((got.float() - want.float()).abs()
+                                           .max()))
+    res["max_abs_y"] = float(want.float().abs().max())
+    check(res["model_round_gu"]["share_bitwise_equal"]
+          > res["kernel_contract"]["share_bitwise_equal"],
+          f"swiglu_mlp round_gu is no closer to the CPU model than the "
+          f"kernel contract: {res}")
+    return res
+
+
+def mlp_logit_gap(cfg, model, device) -> dict:
+    """A reading, not a check: admission and decode logits with the model's
+    MLP (``mlp_apply``: the swiglu_mlp kernel with ``round_gu``, g and u
+    rounded to bf16) and with the kernel's own contract (g and u fp32)
+    against the cuBLAS MLP it replaced (``previous_mlp_apply``: g and u
+    rounded to bf16 by the library), for two sets of contract inputs, beside
+    the earlier reading (``EARLIER_MLP_GAP``). With random weights a deep
+    model's gap is set by the order of the fp32 sums as much as by the MLP's
+    rounding; ``mlp_vs_cpu_model`` and ``round_gu_exact`` hold the repair."""
+    from repro_torch.kernels import swiglu as SW
     from repro_torch.models import layers as L
     from repro_torch.models import model as MD
-    out = {}
     port = L.mlp_apply
-    for name, mlp in (("kernel", port),
-                      ("previous_cublas", previous_mlp_apply)):
-        L.mlp_apply = mlp
-        try:
-            la, cache = admitted_cache(cfg, model, toks, lengths, device)
-            ld, _ = MD.decode_step_slots(cfg, model, cache, tok, act)
-        finally:
-            L.mlp_apply = port
-        out[name] = (la, ld)
-    torch.cuda.synchronize()
-    res = {}
-    for i, what in enumerate(("admission", "decode")):
-        a, b = out["kernel"][i], out["previous_cublas"][i]
-        res[what] = dict(max_abs_gap=float((a - b).abs().max()),
-                         max_abs_logit=float(b.abs().max()),
-                         argmax_equal_share=float(
-                             (a.argmax(-1) == b.argmax(-1)).float().mean()),
-                         rows=int(a.shape[0]))
-    del out
-    free()
+
+    def contract(p, x):
+        return SW.mlp(x, p.wg, p.wu, p.wd)
+    res = dict(earlier_reading={
+        what: dict(max_abs_gap=gap, argmax_equal_share=share)
+        for what, (gap, share) in EARLIER_MLP_GAP.items()})
+    for seed in (3, 29):
+        gcfg, toks, lengths, tok, act, _ = contract_inputs(cfg, device, seed)
+        out = {}
+        for name, mlp in (("model_round_gu", port),
+                          ("kernel_contract", contract),
+                          ("previous_cublas", previous_mlp_apply)):
+            L.mlp_apply = mlp
+            try:
+                la, cache = admitted_cache(gcfg, model, toks, lengths, device)
+                ld, _ = MD.decode_step_slots(gcfg, model, cache, tok, act)
+            finally:
+                L.mlp_apply = port
+            out[name] = (la, ld)
+        torch.cuda.synchronize()
+        res[f"inputs_seed_{seed}"] = reading = {}
+        for i, what in enumerate(("admission", "decode")):
+            b = out["previous_cublas"][i]
+            reading[what] = rec = dict(max_abs_logit=float(b.abs().max()),
+                                       rows=int(b.shape[0]))
+            for name in ("model_round_gu", "kernel_contract"):
+                a = out[name][i]
+                rec[name] = dict(
+                    max_abs_gap=float((a - b).abs().max()),
+                    argmax_equal_share=float(
+                        (a.argmax(-1) == b.argmax(-1)).float().mean()))
+        del out
+        free()
     return res
+
+
+def round_gu_exact(dev) -> dict:
+    """swiglu_mlp's round_gu held bitwise on the card. The inputs make every
+    fp32 sum exact in any order: integer x in [1, 4], gate / up weights in
+    {2..5} / 4 (g, u quarter-integers in [32, 320], not all bf16 numbers, so
+    rounding them matters; silu(g) == g in fp32 for g >= 32), down weights in
+    {-2..2} / 8 (y integers below 2^22). Both settings must equal the plain
+    version bitwise, on both routes, and differ from each other in bf16."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import swiglu as SW
+    plain = ops.KERNELS["swiglu_mlp"].plain
+    gen = torch.Generator(device=dev).manual_seed(23)
+    T, d, f = 64, 64, 128
+
+    def ints(shape, lo, hi, scale):
+        return torch.randint(lo, hi + 1, shape, generator=gen,
+                             device=dev).float() / scale
+    x, wg, wu, wd = (ints((T, d), 1, 4, 1), ints((d, f), 2, 5, 4),
+                     ints((d, f), 2, 5, 4), ints((f, d), -2, 2, 8))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [t.to(dtype) for t in (x, wg, wu, wd)]
+        got = {o: SW.swiglu_mlp(*args, round_gu=o) for o in (False, True)}
+        want = {o: plain(*args, round_gu=o) for o in (False, True)}
+        torch.cuda.synchronize()
+        rec = {f"{'round_gu' if o else 'contract'}_bitwise_vs_plain": bool(
+            torch.equal(got[o], want[o])) for o in (False, True)}
+        rec["round_gu_changes_the_result"] = not torch.equal(got[True],
+                                                             got[False])
+        out[dtype_key(dtype)] = rec
+        check(rec["contract_bitwise_vs_plain"]
+              and rec["round_gu_bitwise_vs_plain"]
+              and rec["round_gu_changes_the_result"] == (
+                  dtype == torch.bfloat16),
+              f"swiglu_mlp round_gu on exact sums ({dtype_key(dtype)}): {rec}")
+    return out
 
 
 def sampled_block_sizes(cfg, model, trace, device) -> dict:
@@ -1894,9 +2236,9 @@ def sampled_block_sizes(cfg, model, trace, device) -> dict:
 def contracts_dense(cfg, model, device, trace) -> dict:
     """The dense family at full width and depth: fused K == stepwise and a
     prompt alone == in a group of four on logits, paged == dense on
-    admission and decode logits, bitwise; the logit gap of the kernel's MLP
-    against the cuBLAS MLP it replaced; decode_block=8 == 1 token for token
-    at temperature > 0."""
+    admission and decode logits, bitwise; the logit gap of the card's MLP
+    against the cuBLAS MLP it replaced, and its layer-0 MLP against the CPU's
+    arithmetic; decode_block=8 == 1 token for token at temperature > 0."""
     from repro_torch.models import model as MD
     gcfg, toks, lengths, tok, act, _ = contract_inputs(cfg, device)
 
@@ -1912,8 +2254,8 @@ def contracts_dense(cfg, model, device, trace) -> dict:
             gcfg, model, toks, lengths, device),
         paged_vs_dense=paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg,
                                       device),
-        mlp_kernel_vs_previous_cublas_logits=mlp_logit_gap(
-            gcfg, model, toks, lengths, tok, act, device),
+        mlp_vs_previous_cublas_logits=mlp_logit_gap(cfg, model, device),
+        mlp_layer0_vs_cpu_model=mlp_vs_cpu_model(model.stack[0].mlp, device),
         sampled=sampled_block_sizes(gcfg, model, trace, device))
 
 
@@ -2277,9 +2619,11 @@ def main(argv=None) -> int:
         k: flash[2][k] for k in timed_keys})
     swiglu, swiglu_timed = swiglu_main_shapes(device, prompt)
     checks.extend(swiglu)
+    swiglu_timed["decode"]["round_gu_exact_sums"] = round_gu_exact(device)
     entries["swiglu_mlp"] = dict(
         swiglu_timed["decode"],
-        admission={k: swiglu_timed["admission"][k] for k in timed_keys},
+        admission={k: swiglu_timed["admission"][k]
+                   for k in timed_keys + ("round_gu",)},
         cuda_core_route={k: swiglu_timed["fp32"][k] for k in timed_keys})
     emit("kernels", cases_passed=n_cases, worst_abs_err_case_list=worst,
          quantize_card_equals_cpu_bitwise=quant_bitwise,
@@ -2504,7 +2848,10 @@ def main(argv=None) -> int:
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec.get("library_ms"), shape=rec["shape"],
             **{k: rec[k] for k in ("device_ms", "library_device_ms",
-                                   "admission", "cuda_core_route")
+                                   "previous_ms", "previous_device_ms",
+                                   "admission", "round_gu",
+                                   "round_gu_exact_sums", "merged_shape",
+                                   "cuda_core_route")
                if k in rec}))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
     check_routes(total_routes, "bfloat16")

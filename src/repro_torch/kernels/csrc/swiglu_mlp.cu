@@ -25,6 +25,15 @@
 //         its fp32 partial to scratch [S, T, d]; reduce_tc sums the partials
 //         in slice order and rounds once (S == 1: the block rounds itself). No
 //         atomics on values.
+// The up epilogue has one option, round_gu: the model's arithmetic
+// (models/layers.py :: mlp_apply, as the reference's model and the port's
+// CPU path compute it) rounds g and u to bf16 before the activation: gb =
+// bf16(g), ub = bf16(u), s = bf16(silu(gb)), h = bf16(s * ub). silu takes
+// moe::silu_mul's form, gb * (1 / (1 + exp(-gb))): on an H100 the precise
+// divide gb / (1 + exp(-gb)) slowed the admission up pass (same registers,
+// no spills) and gave the same bits on every input tried (PERF.md §6).
+// Without the option, the TPU kernel's contract above.
+// The fp32 route needs no such option: rounding to fp32 is the identity.
 // The tile plan (128-column tiles, kBK, S and the slice bounds) is computed by
 // the wrapper from (d, f, SM count) only and passed in; nothing of it reads T.
 // A row's bits therefore depend on (d, f) and the card alone: the k-tiles run
@@ -318,8 +327,25 @@ __device__ __forceinline__ int acc_row(int m0) {
   return m0 + (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
 }
 
-// h[row][c] = round_bf16(silu(g) * u), g / u = x_row . wg / wu[:, c]
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// h of one (g, u) before its rounding to bf16: silu(g) * u in fp32, or with
+// kRoundGU the model's arithmetic, bf16(silu(bf16(g))) * bf16(u).
+template <bool kRoundGU>
+__device__ __forceinline__ float gu_to_h(float g, float u) {
+  if constexpr (kRoundGU) {
+    const float gb = round_bf16(g);
+    return round_bf16(gb * (1.0f / (1.0f + expf(-gb)))) * round_bf16(u);
+  } else {
+    return moe::silu_mul(g, u);
+  }
+}
+
+// h[row][c] = round_bf16(gu_to_h(g, u)), g / u = x_row . wg / wu[:, c]
 // grid: (ceil(T / kBM), ceil(f / kBN))
+template <bool kRoundGU>
 __global__ void __launch_bounds__(kThreads, 1)
 up_tc(const bf16* __restrict__ x, Tabs<2> w, bf16* __restrict__ h, int T,
       int d, int f) {
@@ -337,8 +363,8 @@ up_tc(const bf16* __restrict__ x, Tabs<2> w, bf16* __restrict__ h, int T,
       const int row = r0 + 8 * half, e = 4 * j + 2 * half;
       if (row < T && col < f)
         *reinterpret_cast<uint32_t*>(h + (size_t)row * f + col) =
-            tc::pack_bf16(moe::silu_mul(acc[0][e], acc[1][e]),
-                          moe::silu_mul(acc[0][e + 1], acc[1][e + 1]));
+            tc::pack_bf16(gu_to_h<kRoundGU>(acc[0][e], acc[1][e]),
+                          gu_to_h<kRoundGU>(acc[0][e + 1], acc[1][e + 1]));
     }
   }
 }
@@ -394,7 +420,7 @@ reduce_tc(const float* __restrict__ part, int S, bf16* __restrict__ y,
 inline int launch(const bf16* x, const bf16* wg, const bf16* wu,
                   const bf16* wd, bf16* h, float* part, bf16* y, int T, int d,
                   int f, int n_tile, int k_tile, const int* bounds, int S,
-                  cudaStream_t s) {
+                  bool round_gu, cudaStream_t s) {
   if (n_tile != kBN || k_tile != kBK || S < 1 || S > kMaxSlices ||
       d % 8 != 0 || f % 8 != 0 || bounds == nullptr)
     return kBadPlan;
@@ -408,15 +434,16 @@ inline int launch(const bf16* x, const bf16* wg, const bf16* wu,
   if (S > 1 && part == nullptr) return kBadPlan;
   using UpR = Ring<2, kUpStages>;
   using DownR = Ring<1, kDownStages>;
+  auto up = round_gu ? &up_tc<true> : &up_tc<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      up_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)UpR::kSmem);
+      up, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)UpR::kSmem);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(down_tc,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)DownR::kSmem);
   if (err != cudaSuccess) return (int)err;
   const int rb = moe::ceil_div(T, kBM);
-  up_tc<<<dim3(rb, moe::ceil_div(f, kBN)), kThreads, UpR::kSmem, s>>>(
+  up<<<dim3(rb, moe::ceil_div(f, kBN)), kThreads, UpR::kSmem, s>>>(
       x, Tabs<2>{{wg, wu}}, h, T, d, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -450,16 +477,20 @@ extern "C" int swiglu_mlp_launch(const void* x, const void* wg, const void* wu,
 // d and f multiples of 8; part: fp32 scratch [S, T, d] (unused, may be null,
 // when S == 1). The tile plan: n_tile and k_tile must equal the kernel's
 // (64, 64); bounds: a HOST array of S + 1 cut points of f, 0 first and f
-// last, the inner ones multiples of k_tile. Returns 0, the cudaError_t of a
-// refused launch, or -2 for a plan or shape the kernel does not take.
+// last, the inner ones multiples of k_tile. round_gu != 0: g and u rounded
+// to bf16 before the activation (the model's arithmetic). Returns 0, the
+// cudaError_t of a refused launch, or -2 for a plan or shape the kernel does
+// not take.
 extern "C" int swiglu_mlp_tc_launch(const void* x, const void* wg,
                                     const void* wu, const void* wd, void* h,
                                     void* part, void* out, const int* bounds,
                                     int T, int d, int f, int n_tile,
-                                    int k_tile, int S, void* stream) {
+                                    int k_tile, int S, int round_gu,
+                                    void* stream) {
   if (T <= 0) return 0;
   using tc::bf16;
   return tcmlp::launch((const bf16*)x, (const bf16*)wg, (const bf16*)wu,
                        (const bf16*)wd, (bf16*)h, (float*)part, (bf16*)out, T,
-                       d, f, n_tile, k_tile, bounds, S, (cudaStream_t)stream);
+                       d, f, n_tile, k_tile, bounds, S, round_gu != 0,
+                       (cudaStream_t)stream);
 }

@@ -12,32 +12,47 @@ in int8), far below the card's ~295. The least time is (distinct experts hit)
 x (bytes of one expert) over the memory rate; int8 halves the bytes (plus
 ``4 * (2f + d)`` bytes of scales per expert).
 
-What the design does about it (``csrc/gather_swiglu.cu``,
-``csrc/gather_swiglu_q.cu``, ``moe_swiglu.cuh``): no sort, no padding, no
-scatter, no atomics. The gate/up pass runs over all T*k pairs at once (grid =
-pairs x column slices, so the whole card streams weights), then the down
-pass likewise. Each thread owns adjacent output columns, so weight loads
-coalesce, and walks its reduction axis in index order: a pair's result is
-bitwise the row the grouped kernel computes for it, which is what keeps
-gather == ragged and fused-K == step-at-a-time exact on the card. The bf16
-form adds the k rounded rows of a token in fp32 in slot order in a third
-pass. The int8 form dequantizes each weight with one fp32 multiply by its
-output column's scale, keeps ``h`` fp32, and emits the per-pair rows
-``[T, k, d]``; as in the TPU kernel, the combine runs outside the kernel
+What the design does about it. No sort, no padding, no scatter, no atomics:
+an up pass, a down pass, and (plain tables) a third pass that adds the k
+rounded rows of a token in fp32 in slot order. Plain tables take two routes
+(:func:`repro_torch.kernels.moe_tc.route`, counted per route):
+
+* ``tensor_core`` (bf16, d and f multiples of 8; ``csrc/gather_swiglu.cu`` over
+  ``csrc/moe_tc_sm90.cuh``): an expert-major grid. Block (column tile, e)
+  reads the T*k ids, collects the pairs whose clipped id is e in ascending
+  pair order, 64 a tile, and exits at once if there are none; the expert's
+  tables stream through a ``cp.async`` ring into ``wgmma`` (fp32
+  accumulate), once per column tile for all of its pairs, so a decode step
+  streams the ~49 tables its 64 pairs hit, not 64. The tile plan
+  (:func:`repro_torch.kernels.moe_tc.plan`) and the tile code are
+  ``grouped_swiglu``'s, so a pair's row is bitwise the grouped kernel's.
+* ``cuda_core`` (fp32, odd widths; ``csrc/moe_swiglu.cuh``): one block per
+  pair, each thread owning adjacent output columns and walking its reduction
+  axis in index order with ``fmaf``, bitwise the grouped kernel's CUDA-core
+  row.
+
+Either way gather == ragged and fused-K == step-at-a-time hold exactly on
+the card. The int8 form (``csrc/gather_swiglu_q.cu``, CUDA cores)
+dequantizes each weight with one fp32 multiply by its output column's
+scale, keeps ``h`` fp32, and emits the per-pair rows ``[T, k, d]``; as in
+the TPU kernel, the combine runs outside the kernel
 (:func:`repro_torch.kernels.ref.combine_in_order`, the slot-order sum of the
 ragged path). The TPU kernels' ``(T, k)`` sequential grid is not carried
-over. Pairs that hit the same expert still stream it once each (the L2
-absorbs part of that); sharing the stream across them is later work.
+over.
 """
 from __future__ import annotations
 
 
 import torch
 
-from repro_torch.kernels import _common, ref
+from repro_torch.kernels import _common, moe_tc, ref
 
-GATHER = _common.Kernel("gather_swiglu", ref.gather_swiglu)
+GATHER = _common.Kernel("gather_swiglu", ref.gather_swiglu,
+                        routes=moe_tc.ROUTES)
 GATHER_Q = _common.Kernel("gather_swiglu_q", ref.gather_swiglu_q)
+#: the C entry point of each route
+ENTRY = {"tensor_core": "gather_swiglu_tc_launch",
+         "cuda_core": "gather_swiglu_launch"}
 
 def _check_ids(name, x, idx, w, T):
     if idx.dim() != 2 or idx.shape[0] != T or (w is not None
@@ -58,16 +73,20 @@ def _check_smem(name, d, f):
 def gather_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                   wd: torch.Tensor, idx: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel. x: [T, d]; wg/wu: [E, d, f]; wd: [E, f, d];
-    idx: [T, k] integer expert ids (clipped to [0, E) in the kernel); w:
-    [T, k] combine weights. Returns [T, d] in ``x.dtype``. Everything must be
-    contiguous and on one CUDA device; raises otherwise."""
+    """Launch the kernels of the route of ``(x.dtype, d, f)``
+    (:func:`repro_torch.kernels.moe_tc.route`). x: [T, d]; wg/wu: [E, d, f];
+    wd: [E, f, d]; idx: [T, k] integer expert ids (clipped to [0, E) in the
+    kernel); w: [T, k] combine weights. Returns [T, d] in ``x.dtype``.
+    Everything must be contiguous and on one CUDA device; raises
+    otherwise."""
     if not x.is_cuda:
         raise ValueError("gather_swiglu kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
     T, d, E, f = _common.check_tables("gather_swiglu", x, wg, wu, wd)
     _check_ids("gather_swiglu", x, idx, w, T)
-    _check_smem("gather_swiglu", d, f)
+    path = moe_tc.route(x.dtype, d, f)
+    if path == "cuda_core":
+        _check_smem("gather_swiglu", d, f)
     k = idx.shape[1]
     out = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if T == 0 or k == 0:
@@ -76,14 +95,21 @@ def gather_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     w32 = w.to(torch.float32).contiguous()
     h = torch.empty((T * k, f), dtype=x.dtype, device=x.device)
     y = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _common.launcher("gather_swiglu_launch", 9, 6)(
-            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+    ptrs = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
             idx32.data_ptr(), w32.data_ptr(), h.data_ptr(), y.data_ptr(),
-            out.data_ptr(), T, E, d, f, k, _common.DTYPE_CODES[x.dtype],
-            _common.stream_of(x))
+            out.data_ptr())
+    with torch.cuda.device(x.device):
+        if path == "tensor_core":
+            p = moe_tc.plan(d, f, _common.n_sms(x.device))
+            code = _common.launcher(ENTRY[path], 9, 10,
+                                    source="gather_swiglu")(
+                *ptrs, T, E, d, f, k, *p.args(), _common.stream_of(x))
+        else:
+            code = _common.launcher(ENTRY[path], 9, 6)(
+                *ptrs, T, E, d, f, k, _common.DTYPE_CODES[x.dtype],
+                _common.stream_of(x))
     _common.check_launch("gather_swiglu", code)
-    GATHER.count()
+    GATHER.count(path)
     return out
 
 

@@ -9,32 +9,48 @@ tables quantized per (expert, output channel).
 
 What bounds them on this card: at admission sizes (T = bucket x top_k rows)
 the weight stream of the experts that are hit, ``3 * d * f`` elements each
-(one byte each in int8, plus scales), plus ``2 * 3 * d * f`` flops per row;
-with thousands of rows the operations dominate. This first version computes
-on the CUDA cores in fp32 (no tensor cores), so it sits well above that
-bound.
+(one byte each in int8, plus scales); the ``2 * 3 * d * f`` flops per row
+take less time than that on tensor cores in bf16 (qwen3-moe at 2048 rows:
+19.3 GFLOP, 0.02 ms at the bf16 peak, against 0.366 ms of bytes), but more
+in fp32 on the CUDA cores.
 
-What the design does about it (``csrc/grouped_swiglu.cu``,
-``csrc/grouped_swiglu_q.cu``, ``moe_swiglu.cuh``): two passes on the current
-stream (gate/up, then down). A block holds up to 8 rows of ONE expert in
-shared memory, so every weight element it loads (and, int8, dequantizes with
-one fp32 multiply) serves 8 rows; the block finds its expert by walking
-``group_sizes`` itself (expert e contributes ``ceil(size / 8)`` blocks, so a
-zero-sized group contributes none and cannot be confused with a neighbour).
-The int8 form keeps ``h`` fp32 between the passes. The TPU kernels'
-per-expert segment padding, their ``block_expert`` table, the scatter into a
-padded buffer and the blocked f axis (which made the TPU int8 kernel only
-allclose to its oracle) are not carried over. A row's arithmetic is the
-gather kernel's of the same form, bit for bit.
+What the design does about it: two passes on the current stream (gate/up,
+then down). A block holds rows of ONE expert and finds its segment by
+walking ``group_sizes`` itself (expert e contributes ``ceil(size / R)``
+blocks, so a zero-sized group contributes none and cannot be confused with a
+neighbour). Plain tables take two routes
+(:func:`repro_torch.kernels.moe_tc.route`, counted per route):
+
+* ``tensor_core`` (bf16, d and f multiples of 8; ``csrc/grouped_swiglu.cu``
+  over ``csrc/moe_tc_sm90.cuh``): R = 64 rows (one warpgroup) and one column
+  tile a block on ``wgmma`` (fp32 accumulate), the expert's tables streamed
+  through a ``cp.async`` ring once per column tile for the whole segment
+  (about 16 rows at admission), pad rows zero-filled and never stored. The
+  tile plan (:func:`repro_torch.kernels.moe_tc.plan`) and the tile code are
+  ``gather_swiglu``'s.
+* ``cuda_core`` (fp32, odd widths; ``csrc/moe_swiglu.cuh``): up to 8 rows in
+  shared memory, so every weight element a block loads (and, int8,
+  dequantizes with one fp32 multiply) serves 8 rows; fp32 on the CUDA cores.
+
+The int8 form (``csrc/grouped_swiglu_q.cu``) runs on the CUDA cores and
+keeps ``h`` fp32 between the passes. The TPU kernels' per-expert segment
+padding, their ``block_expert`` table, the scatter into a padded buffer and
+the blocked f axis (which made the TPU int8 kernel only allclose to its
+oracle) are not carried over. A row's arithmetic is the gather kernel's of
+the same form and route, bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _common, ref
+from repro_torch.kernels import _common, moe_tc, ref
 
-GROUPED = _common.Kernel("grouped_swiglu", ref.grouped_swiglu)
+GROUPED = _common.Kernel("grouped_swiglu", ref.grouped_swiglu,
+                         routes=moe_tc.ROUTES)
 GROUPED_Q = _common.Kernel("grouped_swiglu_q", ref.grouped_swiglu_q)
+#: the C entry point of each route
+ENTRY = {"tensor_core": "grouped_swiglu_tc_launch",
+         "cuda_core": "grouped_swiglu_launch"}
 
 def rows_per_block(d: int, f: int) -> int:
     """Largest supported row count whose fp32 rows fit in shared memory."""
@@ -54,29 +70,39 @@ def _check_groups(name, x, group_sizes, E):
 
 def grouped_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                    wd: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel. x: [T, d] rows sorted by expert; wg/wu:
-    [E, d, f]; wd: [E, f, d]; group_sizes: [E] integers summing to T (zeros
-    are routine). Returns [T, d] in ``x.dtype``; rows beyond
-    ``sum(group_sizes)`` are left unwritten. Everything must be contiguous
-    and on one CUDA device; raises otherwise."""
+    """Launch the kernels of the route of ``(x.dtype, d, f)``
+    (:func:`repro_torch.kernels.moe_tc.route`). x: [T, d] rows sorted by
+    expert; wg/wu: [E, d, f]; wd: [E, f, d]; group_sizes: [E] integers
+    summing to T (zeros are routine). Returns [T, d] in ``x.dtype``; rows
+    beyond ``sum(group_sizes)`` are left unwritten. Everything must be
+    contiguous and on one CUDA device; raises otherwise."""
     if not x.is_cuda:
         raise ValueError("grouped_swiglu kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
     T, d, E, f = _common.check_tables("grouped_swiglu", x, wg, wu, wd)
     _check_groups("grouped_swiglu", x, group_sizes, E)
-    rows = rows_per_block(d, f)
+    path = moe_tc.route(x.dtype, d, f)
+    if path == "cuda_core":
+        rows = rows_per_block(d, f)
     out = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if T == 0:
         return out
     gs32 = group_sizes.to(torch.int32).contiguous()
     h = torch.empty((T, f), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            gs32.data_ptr(), h.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
-        code = _common.launcher("grouped_swiglu_launch", 7, 6)(
-            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-            gs32.data_ptr(), h.data_ptr(), out.data_ptr(), T, E, d, f, rows,
-            _common.DTYPE_CODES[x.dtype], _common.stream_of(x))
+        if path == "tensor_core":
+            p = moe_tc.plan(d, f, _common.n_sms(x.device))
+            code = _common.launcher(ENTRY[path], 7, 9,
+                                    source="grouped_swiglu")(
+                *ptrs, T, E, d, f, *p.args(), _common.stream_of(x))
+        else:
+            code = _common.launcher(ENTRY[path], 7, 6)(
+                *ptrs, T, E, d, f, rows, _common.DTYPE_CODES[x.dtype],
+                _common.stream_of(x))
     _common.check_launch("grouped_swiglu", code)
-    GROUPED.count()
+    GROUPED.count(path)
     return out
 
 

@@ -12,8 +12,9 @@ contiguous view (sentinel entries clipped into range), then the dense path's
 the query's type first. Flash attention: logits through ``ein`` (rounded to
 the inputs' type) times ``1/sqrt(hd)``, the bottom-right causal mask filled
 with the most negative fp32, softmax cast to v's type, the value product. The
-dense MLP: g and u in fp32, ``h`` rounded to the model type, the down product
-in fp32 rounded once. The CPU path of :mod:`repro_torch.kernels.ops` runs
+dense MLP: g and u in fp32 (or, with ``round_gu``, rounded to the model type
+as the model's arithmetic does), ``h`` rounded to the model type, the down
+product in fp32 rounded once. The CPU path of :mod:`repro_torch.kernels.ops` runs
 these; on the card they are only what the hand-written kernels are held
 against.
 """
@@ -34,15 +35,18 @@ _CHUNK_BYTES = 1 << 30
 
 
 def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-               wd: torch.Tensor) -> torch.Tensor:
+               wd: torch.Tensor, round_gu: bool = False) -> torch.Tensor:
     """The dense MLP's kernel contract. x: [T, d]; wg/wu: [d, f]; wd:
     [f, d]. g and u in fp32, ``silu(g) * u`` rounded to x's type, the down
-    product in fp32 rounded once. (The model's CPU path, ``layers.mlp_apply``,
-    rounds g and u to the model type as the reference's model does; the two
-    agree at fp32.)"""
+    product in fp32 rounded once. ``round_gu``: the model's arithmetic
+    (``layers.mlp_apply``, as the reference's model computes it) instead, g
+    and u rounded to x's type before the activation, which rounds too; the
+    same at fp32."""
     xf = x.to(F32)
     g = xf @ wg.to(F32)
     u = xf @ wu.to(F32)
+    if round_gu:
+        g, u = g.to(x.dtype), u.to(x.dtype)
     h = (F.silu(g) * u).to(x.dtype)
     return (h.to(F32) @ wd.to(F32)).to(x.dtype)
 

@@ -29,6 +29,13 @@ own C entry point in ``csrc/swiglu_mlp.cu`` and its own launch count:
   order with ``fmaf``), bit for bit ``grouped_swiglu`` with one group. Any
   width.
 
+``round_gu=True`` selects the model's arithmetic instead of the kernel
+contract: g and u rounded to the model type before ``silu(g) * u``, the
+activation rounded too, as the reference's model (``models/layers.py ::
+mlp_apply``) and the port's CPU path compute it. The model's MLP sets it
+(:func:`repro_torch.models.layers.mlp_apply`); :mod:`kernels.ops` keeps the
+contract. In fp32 it changes nothing (rounding to fp32 is the identity).
+
 A bf16 CUDA tensor always takes the tensor-core pair or the call raises; the
 plain version runs only on CPU tensors (``kernels.ops``).
 """
@@ -129,11 +136,13 @@ def _check(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-               wd: torch.Tensor) -> torch.Tensor:
+               wd: torch.Tensor, round_gu: bool = False) -> torch.Tensor:
     """Launch the kernel pair of x's dtype (:func:`route`). x: [T, d];
     wg/wu: [d, f]; wd: [f, d], all in one type (float32 or bfloat16),
     contiguous, 16-byte aligned and on one CUDA device; bf16 with d and f
-    multiples of 8. Raises otherwise. Returns [T, d] in x's type."""
+    multiples of 8. Raises otherwise. ``round_gu``: g and u rounded to the
+    model type before the activation (the model's arithmetic; the identity in
+    fp32). Returns [T, d] in x's type."""
     if not x.is_cuda:
         raise ValueError("swiglu_mlp kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
@@ -149,11 +158,12 @@ def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             part = (torch.empty((p.slices, T, d), dtype=torch.float32,
                                 device=x.device) if p.slices > 1 else None)
             bounds = (ctypes.c_int * len(p.bounds))(*p.bounds)
-            code = _common.launcher(ENTRY[path], 8, 6, source="swiglu_mlp")(
+            code = _common.launcher(ENTRY[path], 8, 7, source="swiglu_mlp")(
                 x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                 h.data_ptr(), None if part is None else part.data_ptr(),
                 out.data_ptr(), ctypes.cast(bounds, ctypes.c_void_p), T, d, f,
-                p.n_tile, p.k_tile, p.slices, _common.stream_of(x))
+                p.n_tile, p.k_tile, p.slices, int(round_gu),
+                _common.stream_of(x))
         else:
             code = _common.launcher(ENTRY[path], 6, 4)(
                 x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
@@ -165,9 +175,9 @@ def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-        wd: torch.Tensor) -> torch.Tensor:
+        wd: torch.Tensor, round_gu: bool = False) -> torch.Tensor:
     """:func:`swiglu_mlp` over ``x [..., d]`` as the model hands it over:
     the leading axes are flattened (a view where x is contiguous) and
     restored on the result."""
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    return swiglu_mlp(x2, wg, wu, wd).reshape(x.shape)
+    return swiglu_mlp(x2, wg, wu, wd, round_gu=round_gu).reshape(x.shape)

@@ -424,15 +424,15 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP of ``x [..., d]``. The choice is by device, never a
-    fallback (as :func:`_attend`). On a CUDA tensor the hand-written
-    ``swiglu_mlp`` kernel runs: the kernel's contract keeps g and u in fp32.
-    On a CPU tensor the reference's model arithmetic runs, which rounds g and
-    u to the model type (``ein``), so the CPU path stays logit equal to the
-    reference's model at bf16 too; the two agree at fp32."""
+    """SwiGLU MLP of ``x [..., d]``: the reference's model arithmetic on
+    both devices, which rounds g and u to the model type (``ein``) before
+    ``silu(g) * u``, so the MLP stays logit equal to the reference's model at
+    bf16 too. The choice of code is by device, never a fallback (as
+    :func:`_attend`): on a CUDA tensor the hand-written ``swiglu_mlp`` kernel
+    with its ``round_gu`` epilogue, on a CPU tensor the products below."""
     if x.is_cuda:
         from repro_torch.kernels import swiglu as SW
-        return SW.mlp(x, p.wg, p.wu, p.wd)
+        return SW.mlp(x, p.wg, p.wu, p.wd, round_gu=True)
     g = ein("...d,df->...f", x, p.wg)
     u = ein("...d,df->...f", x, p.wu)
     h = (F.silu(g) * u).to(x.dtype)

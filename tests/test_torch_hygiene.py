@@ -129,8 +129,8 @@ def test_kernel_sources_are_in_the_package_and_build_is_lazy():
     from repro_torch.kernels import _build
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {"gather_swiglu.cu", "grouped_swiglu.cu", "moe_swiglu.cuh",
-            "gather_swiglu_q.cu", "grouped_swiglu_q.cu", "paged_attention.cu",
-            "paged_attention_q.cu", "paged_attention.cuh",
+            "moe_tc_sm90.cuh", "gather_swiglu_q.cu", "grouped_swiglu_q.cu",
+            "paged_attention.cu", "paged_attention_q.cu", "paged_attention.cuh",
             "flash_attention.cu", "swiglu_mlp.cu"} <= names
     assert {f"{n}.cu" for n in _build.KERNEL_SOURCES} == {
         n for n in names if n.endswith(".cu")}
