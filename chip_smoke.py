@@ -53,7 +53,14 @@ one JSON line:
             (held to the plain version at bf16 and at fp32, a row bitwise the
             same alone, among 8, 64 and 2048 and in a segment of 1 or 100,
             timed beside their CUDA-core kernels), anything else to the
-            CUDA-core ones. The threefry bits
+            CUDA-core ones; the int8 pair gather_swiglu_q / grouped_swiglu_q
+            likewise at widths that are multiples of 16 (the int8 contract:
+            scales after the sums, h as bf16 hi + lo; two bf16 ulps of
+            max|y| against the plain version, the same checks, its combine
+            bitwise combine_in_order on both routes; summed over the
+            outputs, nearer the plain version than the plain arithmetic
+            with h rounded once to bf16, so h's lo half is used). The
+            threefry bits
             and uniforms on the card == on the CPU, the Gumbel noise to 2
             ulps of max(|g|, 1)
   contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
@@ -78,7 +85,10 @@ one JSON line:
             must the paged bf16 pool, whose served tokens equal dense's; paged
             int8 KV must reach 0.95 at the reduced config). Then the same
             trace with decode_block=1 (token equal to decode_block=8) and
-            dispatch="ragged" at --variant-layers
+            dispatch="ragged" at --variant-layers. With --profile, one
+            decode block each of the bf16-table and the int8-table model under
+            torch.profiler, the int8 one also with its MoE pair held to the
+            CUDA-core route (the route before the tensor-core one)
   dense     granite-8b at its published widths and full depth (36 layers),
             bf16, random weights: the contracts (fused K == stepwise and a
             prompt alone == in a group of four on logits, paged == dense on
@@ -104,7 +114,7 @@ one JSON line:
 
 then a ``{"kernels": [...]}`` line (times, bounds and the main path's launch
 counts, by route too: the bf16 main path must launch only the tensor-core
-kernels of flash_attention, swiglu_mlp, gather_swiglu and grouped_swiglu),
+kernels of flash_attention, swiglu_mlp and the two MoE pairs),
 the card's name and power limit,
 and ``{"ok": true, ...}`` last. Any
 failing check raises: nothing is caught and no kernel failure is answered by
@@ -113,6 +123,7 @@ the plain version.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -472,16 +483,23 @@ def flash_invariance(gen, dev, dtype) -> dict:
     return out
 
 
+def moe_route(name: str, dtype, d: int, f: int) -> str:
+    """The route a MoE kernel's wrapper takes for (dtype, d, f): the int8
+    pair's (``moe_tc.route_q``) or the bf16 pair's (``moe_tc.route``)."""
+    from repro_torch.kernels import moe_tc
+    return (moe_tc.route_q if name.endswith("_q") else moe_tc.route)(
+        dtype, d, f)
+
+
 def took_route(kernel, rows: int, d: int, f: int, dtype, fn):
     """``fn()``, a call of ``kernel``'s wrapper over ``rows`` rows, launched
     once on the route of (dtype, d, f) and on no other (no launch for no
     rows). Returns what it returned."""
-    from repro_torch.kernels import moe_tc
     before = dict(kernel.ROUTE_LAUNCHES)
     out = fn()
     want = dict(before)
     if rows > 0:
-        want[moe_tc.route(dtype, d, f)] += 1
+        want[moe_route(kernel.name, dtype, d, f)] += 1
     check(kernel.ROUTE_LAUNCHES == want,
           f"{kernel.name}: launches by route {kernel.ROUTE_LAUNCHES}, expected "
           f"{want} (d={d}, f={f}, {dtype_key(dtype)})")
@@ -493,8 +511,10 @@ def case_list(dev):
     test_torch_paged_attention.py, test_torch_flash.py and the reference's
     swiglu cases at their reduced shapes, for all eight kernels. The bf16
     gather / grouped cases take the tensor-core route at widths that are
-    multiples of 8 and the CUDA-core one at the odd widths (checked per
-    call), and are held to the plain version at fp32 as well."""
+    multiples of 8 (int8 tables: 16) and the CUDA-core one at other widths
+    (checked per call), and the bf16-table ones are held to the plain
+    version at fp32 as well. In bf16 the int8 grouped cases run again at
+    widths that are multiples of 16 (32, 48), on the tensor-core route."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import decode_moe, grouped_mlp, ops
     from repro_torch.kernels import swiglu as SW
@@ -529,12 +549,21 @@ def case_list(dev):
                 want = plain(x.float(), wg.float(), wu.float(), wd.float(), gs)
                 compare(f"grouped_swiglu[{name},{key}] vs fp32", got, want,
                         dtype, moe_tol32(want))
-            qt = Q.quantize_expert_tables(wg, wu, wd)
-            got = grouped_mlp.grouped_swiglu_q(x, qt, gs)
-            err, _ = compare(f"grouped_swiglu_q[{name},{key}]", got,
-                             ops.KERNELS["grouped_swiglu_q"].plain(x, qt, gs),
-                             dtype)
-            note("grouped_swiglu_q", err)
+            widths = [(d, f)] + ([(32, 48)] if dtype == torch.bfloat16
+                                 and name != "odd-widths" else [])
+            for dq, fq in widths:
+                if (dq, fq) != (d, f):
+                    x = (torch.randn((T, dq), generator=gen, device=dev)
+                         * 0.5).to(dtype)
+                    wg, wu, wd = tables(gen, E, dq, fq, dtype, dev)
+                qt = Q.quantize_expert_tables(wg, wu, wd)
+                got = took_route(
+                    grouped_mlp.GROUPED_Q, T, dq, fq, dtype,
+                    lambda: grouped_mlp.grouped_swiglu_q(x, qt, gs))
+                err, _ = compare(
+                    f"grouped_swiglu_q[{name},{dq}x{fq},{key}]", got,
+                    ops.KERNELS["grouped_swiglu_q"].plain(x, qt, gs), dtype)
+                note("grouped_swiglu_q", err)
         for name, (T, d, f, E, k, idx, live) in GATHER_CASES.items():
             x = (torch.randn((T, d), generator=gen, device=dev) * 0.5).to(dtype)
             wg, wu, wd = tables(gen, E, d, f, dtype, dev, live=live)
@@ -558,7 +587,8 @@ def case_list(dev):
                 compare(f"gather_swiglu[{name},{key}] vs fp32", got, want,
                         dtype, moe_tol32(want))
             qt = Q.quantize_expert_tables(wg, wu, wd)
-            got = decode_moe.gather_swiglu_q(x, qt, idx, w)
+            got = took_route(decode_moe.GATHER_Q, T * k, d, f, dtype,
+                             lambda: decode_moe.gather_swiglu_q(x, qt, idx, w))
             err, _ = compare(f"gather_swiglu_q[{name},{key}]", got,
                              ops.KERNELS["gather_swiglu_q"].plain(
                                  x, qt, idx, w), dtype)
@@ -713,14 +743,15 @@ def bound_ms(dtype, n_rows: int, experts_hit: int, d: int, f: int,
     (each input read once, each output written once: the three tables of
     every expert that is HIT, plus activations and indices) and operations /
     peak rate of the type (2*3*d*f per row). Int8 tables: one byte a weight
-    plus the fp32 scales of its (2f + d) output channels; the arithmetic is
-    fp32 (the weights are dequantized to fp32), so the fp32 peak."""
+    plus the fp32 scales of its (2f + d) output channels. The operations run
+    at the activations' peak: with bf16 x the products x . q are exact on
+    bf16 operands (int8 -> bf16 is exact), so the bf16 peak; fp32 x, the
+    fp32 peak."""
+    peak = PEAK_FLOPS[dtype]
     if int8:
         per_expert = 3 * d * f + 4 * (2 * f + d)
-        peak = PEAK_FLOPS[torch.float32]
     else:
         per_expert = 3 * d * f * torch.empty((), dtype=dtype).element_size()
-        peak = PEAK_FLOPS[dtype]
     t_bytes = (experts_hit * per_expert + io_bytes) / HBM_BYTES_PER_S
     t_ops = (n_rows * 2 * 3 * d * f) / peak
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -762,9 +793,10 @@ def sort_pairs(idx, E, k):
 
 
 #: the numbers of a MoE kernel's record that ride along beside its main one
-MOE_TIMED_KEYS = ("shape", "experts_hit", "max_err", "ms", "device_ms",
-                  "plain_ms", "bound_ms", "bound_by", "previous_ms",
-                  "previous_device_ms")
+MOE_TIMED_KEYS = ("shape", "route", "experts_hit", "max_err", "ms",
+                  "device_ms", "plain_ms", "bound_ms", "bound_by",
+                  "previous_ms", "previous_device_ms", "ms_with_combine",
+                  "device_ms_with_combine", "previous_device_ms_with_combine")
 
 
 def moe_tol32(want: torch.Tensor):
@@ -778,32 +810,97 @@ def moe_tol32(want: torch.Tensor):
                                   "2 bf16 ulps of max|y|")
 
 
+def moe_tol_q(want: torch.Tensor):
+    """An int8 MoE kernel on tensor cores against its plain version (each
+    weight dequantized in fp32, h fp32, one rounding at the output). The
+    kernel sums x . q in fp32 in another order and scales after the sum (a
+    few fp32 ulps), keeps h as bf16 hi + lo (2^-16 of |h|) and rounds y once
+    (half a bf16 ulp): two bf16 ulps of max|y|, as ``moe_tol32``."""
+    rtol, atol, _ = moe_tol32(want)
+    return rtol, atol, ("vs the plain version (fp32 dequantized tables, h "
+                        "fp32; the kernel scales after the sum, keeps h as "
+                        "bf16 hi + lo and rounds y once): atol 2 bf16 ulps "
+                        "of max|y|")
+
+
+def q_rows_h_bf16(x, qt, eid, chunk: int = 32):
+    """Row r of ``x`` through int8 expert ``eid[r]`` as the plain version
+    computes it (fp32 dequantized tables, fp32 sums) but with h rounded once
+    to bf16 between the passes: what a kernel that dropped h's lo half would
+    compute. [n, d] bf16."""
+    import torch.nn.functional as F
+    out = torch.empty((x.shape[0], x.shape[1]), dtype=torch.bfloat16,
+                      device=x.device)
+    for r0 in range(0, x.shape[0], chunk):
+        e = eid[r0:r0 + chunk]
+        xr = x[r0:r0 + chunk].float().unsqueeze(1)
+        g = torch.bmm(xr, qt.wg[e].float() * qt.wg_scale[e])
+        u = torch.bmm(xr, qt.wu[e].float() * qt.wu_scale[e])
+        h = (F.silu(g) * u).to(torch.bfloat16).float()
+        y = torch.bmm(h, qt.wd[e].float() * qt.wd_scale[e])
+        out[r0:r0 + chunk] = y.squeeze(1).to(torch.bfloat16)
+    return out
+
+
+def check_h_keeps_lo(name, got, want32, h_bf16) -> dict:
+    """The int8 tensor-core kernel carries h as bf16 hi + lo: summed over
+    every output, its distance to the plain version (h fp32, output fp32)
+    must be below that of the same plain arithmetic with h rounded once to
+    bf16 (``h_bf16``), which a kernel that dropped or zeroed lo would
+    match instead."""
+    gap = float((got.float() - want32.float()).abs().sum())
+    gap16 = float((h_bf16.float() - want32.float()).abs().sum())
+    check(gap < gap16, f"{name}: summed |y - plain| {gap} is not below the "
+                       f"bf16-h variant's {gap16}: h's lo half is not used")
+    return dict(sum_abs_err_vs_plain_fp32=gap,
+                sum_abs_err_h_bf16_vs_plain_fp32=gap16,
+                gap_share_of_h_bf16=gap / gap16)
+
+
 def previous_moe(name, x, wg, wu, wd, ids, w=None):
     """One call of the CUDA-core kernel that the bf16 route ran before its
     tensor-core one (the ``previous_ms`` yardstick), through its C entry
     point and not its wrapper (so no launch is counted; the wrappers never
     reach it in bf16 at these widths). ``name``: gather_swiglu (ids: idx
-    [T, k], w [T, k]) or grouped_swiglu (ids: group sizes [E])."""
+    [T, k], w [T, k]) or grouped_swiglu (ids: group sizes [E]); the int8
+    pair (wg: the ``QuantizedExpertTables``, wu / wd unused): gather_swiglu_q
+    (ids: idx [T, k]; the per-pair rows [T, k, d], as the kernel emits them,
+    or with w the rows combined by the kernel's combine pass) or
+    grouped_swiglu_q (ids: group sizes [E])."""
     from repro_torch.kernels import _common, grouped_mlp
     T, d = x.shape
-    E, _, f = wg.shape
-    out = torch.empty_like(x)
-    ptrs = [x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr()]
-    if name == "gather_swiglu":
+    int8 = name.endswith("_q")
+    if int8:
+        qt = wg
+        E, _, f = qt.wg.shape
+        ptrs = [x.data_ptr()] + [t.data_ptr() for t in qt]
+        hdt = torch.float32
+    else:
+        E, _, f = wg.shape
+        ptrs = [x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr()]
+        hdt = x.dtype
+    if name.startswith("gather"):
         k = ids.shape[1]
         idx32 = ids.to(torch.int32).contiguous()
-        w32 = w.to(torch.float32).contiguous()
-        h = torch.empty((T * k, f), dtype=x.dtype, device=x.device)
+        h = torch.empty((T * k, f), dtype=hdt, device=x.device)
         y = torch.empty((T * k, d), dtype=x.dtype, device=x.device)
-        ptrs += [idx32.data_ptr(), w32.data_ptr(), h.data_ptr(), y.data_ptr()]
         ints = [T, E, d, f, k]
+        w32 = None if w is None else w.to(torch.float32).contiguous()
+        out = y.reshape(T, k, d) if w is None else torch.empty_like(x)
+        ptrs += [idx32.data_ptr(), None if w is None else w32.data_ptr()]
+        if int8:
+            ptrs += [h.data_ptr(), y.data_ptr(),
+                     None if w is None else out.data_ptr()]
+        else:
+            ptrs += [h.data_ptr(), y.data_ptr(), out.data_ptr()]
+        tail = []
     else:
         gs32 = ids.to(torch.int32).contiguous()
-        h = torch.empty((T, f), dtype=x.dtype, device=x.device)
-        ptrs += [gs32.data_ptr(), h.data_ptr()]
+        h = torch.empty((T, f), dtype=hdt, device=x.device)
+        out = torch.empty_like(x)
+        ptrs += [gs32.data_ptr(), h.data_ptr(), out.data_ptr()]
         ints = [T, E, d, f]
-    ptrs.append(out.data_ptr())
-    tail = [] if name == "gather_swiglu" else [grouped_mlp.rows_per_block(d, f)]
+        tail = [grouped_mlp.rows_per_block(d, f)]
     tail.append(_common.DTYPE_CODES[x.dtype])
     fn = _common.launcher(f"{name}_launch", len(ptrs), len(ints) + len(tail))
     _common.check_launch(name, fn(*ptrs, *ints, *tail, _common.stream_of(x)))
@@ -819,22 +916,29 @@ def moe_tc_timings(name, x, wg, wu, wd, ids, w=None) -> dict:
                 previous_device_ms=graph_ms(previous, calls=10))
 
 
-def gather_tc_checks(gen, n_orig, x, wg, wu, wd, idx, w, got) -> dict:
-    """bf16 gather on tensor cores: against the plain version at fp32; a
-    token's row alone == among the 8 slots == among 64 tokens, and a token's
-    row among 128 pairs of one expert (two 64-row tiles, held to the plain
-    version too) == alone, bitwise."""
-    from repro_torch.kernels import decode_moe, ops
-    plain = ops.KERNELS["gather_swiglu"].plain
+def gather_tc_checks(gen, n_orig, x, idx, w, got, call, plain, name,
+                     tol32, qt=None) -> dict:
+    """A gather kernel on tensor cores (``call(x, idx, w)``: the bf16 form's
+    combined rows, the int8 form's per-pair rows; ``plain`` the same in the
+    plain version): against the plain version on fp32-widened inputs
+    (``tol32``); a token's row alone == among the 8 slots == among 64
+    tokens, and a token's row among 128 pairs of one expert (two 64-row
+    tiles, held to the plain version too) == alone, bitwise. With the int8
+    tables ``qt``, also :func:`check_h_keeps_lo`."""
     T, d = x.shape
-    k, E = idx.shape[1], wg.shape[0]
+    k = idx.shape[1]
     dev, dtype = x.device, x.dtype
-    want32 = plain(x.float(), wg.float(), wu.float(), wd.float(), idx, w)
-    err32, words32 = compare(f"gather_swiglu[T={T},E={E},bfloat16] vs fp32",
-                             got, want32, dtype, moe_tol32(want32))
-
-    def gather(rows, ids, ws):
-        return decode_moe.gather_swiglu(rows, wg, wu, wd, ids, ws)
+    E = plain.n_experts
+    want32 = plain(x.float(), idx, w, fp32=True)
+    err32, words32 = compare(f"{name}[T={T},E={E},bfloat16] vs fp32", got,
+                             want32, dtype, tol32(want32))
+    lo_used = {}
+    if qt is not None:
+        eid = idx.reshape(-1).long().clamp(0, E - 1)
+        lo_used = check_h_keeps_lo(
+            f"{name}[T={T},E={E}]", got, want32,
+            q_rows_h_bf16(x.repeat_interleave(k, dim=0), qt, eid)
+            .reshape(got.shape))
 
     def tokens(n, ids=None):
         xn = (torch.randn((n, d), generator=gen, device=dev) * 0.5).to(dtype)
@@ -842,45 +946,46 @@ def gather_tc_checks(gen, n_orig, x, wg, wu, wd, idx, w, got) -> dict:
             ids = route_like_the_model(gen, n, k, n_orig, E, dev)
         return xn, ids, torch.softmax(torch.randn((n, k), generator=gen,
                                                   device=dev), -1)
-    alone = gather(x[3:4], idx[3:4], w[3:4])
+    alone = call(x[3:4], idx[3:4], w[3:4])
     xm, im, wm = tokens(64 - T)
-    many = gather(torch.cat([x, xm]), torch.cat([idx, im]),
-                  torch.cat([w, wm]))
+    many = call(torch.cat([x, xm]), torch.cat([idx, im]), torch.cat([w, wm]))
     x16, i16, w16 = tokens(16, torch.full((16, k), int(idx[0, 0]),
                                           dtype=torch.int32, device=dev))
-    two_tiles = gather(x16, i16, w16)
-    compare(f"gather_swiglu[16 x {k} pairs of one expert,E={E},bfloat16]",
-            two_tiles, plain(x16, wg, wu, wd, i16, w16), dtype)
-    one = gather(x16[9:10], i16[9:10], w16[9:10])
+    two_tiles = call(x16, i16, w16)
+    compare(f"{name}[16 x {k} pairs of one expert,E={E},bfloat16]",
+            two_tiles, plain(x16, i16, w16), dtype)
+    one = call(x16[9:10], i16[9:10], w16[9:10])
     torch.cuda.synchronize()
     inv = dict(row_alone_vs_among_8_tokens=bool(torch.equal(alone[0], got[3])),
                among_8_vs_among_64_tokens=bool(torch.equal(many[:T], got)),
                row_alone_vs_among_128_pairs_of_one_expert=bool(
                    torch.equal(one[0], two_tiles[9])))
-    check(all(inv.values()), f"gather_swiglu (tensor cores, E={E}): a row's "
-                             f"bits depend on its neighbours: {inv}")
+    check(all(inv.values()), f"{name} (tensor cores, E={E}): a row's bits "
+                             f"depend on its neighbours: {inv}")
     return dict(max_err_vs_plain_fp32=err32, tol_vs_plain_fp32=words32,
-                invariance_bitwise=inv,
-                **moe_tc_timings("gather_swiglu", x, wg, wu, wd, idx, w))
+                invariance_bitwise=inv, **lo_used)
 
 
-def grouped_tc_checks(gen, xs, wg, wu, wd, gs, got) -> dict:
-    """bf16 grouped on tensor cores: against the plain version at fp32; rows
-    alone (a segment of 1) == among 8 == among 64 == among all, and the rows
-    of a segment of 100 rows of one expert (two 64-row tiles, held to the
-    plain version too) == each alone, bitwise."""
-    from repro_torch.kernels import grouped_mlp, ops
+def grouped_tc_checks(gen, xs, gs, got, call, plain, name, tol32,
+                      qt=None) -> dict:
+    """A grouped kernel on tensor cores (``call(rows, group_sizes)``,
+    ``plain`` the same in the plain version): against the plain version on
+    fp32-widened inputs (``tol32``); rows alone (a segment of 1) == among 8
+    == among 64 == among all, and the rows of a segment of 100 rows of one
+    expert (two 64-row tiles, held to the plain version too) == each alone,
+    bitwise. With the int8 tables ``qt``, also :func:`check_h_keeps_lo`."""
     from repro_torch.kernels.ref import rows_to_experts
-    plain = ops.KERNELS["grouped_swiglu"].plain
     T, d = xs.shape
-    E = wg.shape[0]
+    E = plain.n_experts
     dev, dtype = xs.device, xs.dtype
-    want32 = plain(xs.float(), wg.float(), wu.float(), wd.float(), gs)
-    err32, words32 = compare(f"grouped_swiglu[T={T},E={E},bfloat16] vs fp32",
-                             got, want32, dtype, moe_tol32(want32))
-
-    def grouped(rows, sizes):
-        return grouped_mlp.grouped_swiglu(rows.contiguous(), wg, wu, wd, sizes)
+    want32 = plain(xs.float(), gs, fp32=True)
+    err32, words32 = compare(f"{name}[T={T},E={E},bfloat16] vs fp32", got,
+                             want32, dtype, tol32(want32))
+    lo_used = {}
+    if qt is not None:
+        lo_used = check_h_keeps_lo(f"{name}[T={T},E={E}]", got, want32,
+                                   q_rows_h_bf16(xs, qt,
+                                                 rows_to_experts(gs, T)))
 
     def one_group(e, n):
         sizes = torch.zeros((E,), dtype=torch.int32, device=dev)
@@ -888,15 +993,16 @@ def grouped_tc_checks(gen, xs, wg, wu, wd, gs, got) -> dict:
         return sizes
     eid = rows_to_experts(gs, T)
     rows = (0, 5, T - 1)
-    alone = [grouped(xs[i:i + 1], one_group(int(eid[i]), 1)) for i in rows]
+    alone = [call(xs[i:i + 1], one_group(int(eid[i]), 1)) for i in rows]
     cum = torch.cumsum(gs, 0)
-    among = {n: grouped(xs[:n], cum.clamp(max=n) - (cum - gs).clamp(max=n))
+    among = {n: call(xs[:n].contiguous(),
+                     cum.clamp(max=n) - (cum - gs).clamp(max=n))
              for n in (8, 64)}
     x100 = (torch.randn((100, d), generator=gen, device=dev) * 0.5).to(dtype)
-    seg = grouped(x100, one_group(int(eid[0]), 100))
-    compare(f"grouped_swiglu[segment of 100,E={E},bfloat16]", seg,
-            plain(x100, wg, wu, wd, one_group(int(eid[0]), 100)), dtype)
-    singles = {i: grouped(x100[i:i + 1], one_group(int(eid[0]), 1))
+    seg = call(x100, one_group(int(eid[0]), 100))
+    compare(f"{name}[segment of 100,E={E},bfloat16]", seg,
+            plain(x100, one_group(int(eid[0]), 100)), dtype)
+    singles = {i: call(x100[i:i + 1], one_group(int(eid[0]), 1))
                for i in (0, 63, 64, 99)}
     torch.cuda.synchronize()
     inv = dict(row_alone_vs_among_all=all(
@@ -905,11 +1011,27 @@ def grouped_tc_checks(gen, xs, wg, wu, wd, gs, got) -> dict:
            for n, y in among.items()},
         segment_of_1_vs_segment_of_100=all(
             torch.equal(y[0], seg[i]) for i, y in singles.items()))
-    check(all(inv.values()), f"grouped_swiglu (tensor cores, E={E}): a row's "
-                             f"bits depend on its neighbours: {inv}")
+    check(all(inv.values()), f"{name} (tensor cores, E={E}): a row's bits "
+                             f"depend on its neighbours: {inv}")
     return dict(max_err_vs_plain_fp32=err32, tol_vs_plain_fp32=words32,
-                invariance_bitwise=inv,
-                **moe_tc_timings("grouped_swiglu", xs, wg, wu, wd, gs))
+                invariance_bitwise=inv, **lo_used)
+
+
+class Plain:
+    """The plain version of one MoE form over fixed tables, called like the
+    checks call the kernel: ``(rows, ids[, w][, fp32=True])`` where
+    ``fp32`` widens the bf16 tables first (the int8 form's plain version is
+    fp32 inside already and takes the rows widened)."""
+
+    def __init__(self, fn, tabs, int8: bool):
+        self.fn, self.tabs, self.int8 = fn, tabs, int8
+        self.n_experts = (tabs[0].wg if int8 else tabs[0]).shape[0]
+
+    def __call__(self, rows, *ids, fp32=False):
+        tabs = self.tabs
+        if fp32 and not self.int8:
+            tabs = [t.float() for t in tabs]
+        return self.fn(rows, *tabs, *ids)
 
 
 def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
@@ -923,6 +1045,9 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
     d, f = cfg.d_model, cfg.moe.d_ff_expert
     N, k = cfg.moe.n_experts, cfg.moe.top_k
     gen = torch.Generator(device=dev).manual_seed(7)
+    # the int8 pair's checks draw their own inputs, so the timed inputs stay
+    # those of the trees before them (comparable across trees)
+    gen_q = torch.Generator(device=dev).manual_seed(17)
     checks, entries, records = [], {}, {}
     quant_bitwise = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -972,32 +1097,64 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                                         reps=3, rounds=3),
                        bitwise_vs_grouped=bitwise)
             if dtype == torch.bfloat16:
-                rec.update(gather_tc_checks(gen, N, x, wg, wu, wd, idx, w, got))
+                rec.update(gather_tc_checks(
+                    gen, N, x, idx, w, got,
+                    lambda r, i, v: decode_moe.gather_swiglu(r, wg, wu, wd, i,
+                                                             v),
+                    Plain(plain, [wg, wu, wd], False), "gather_swiglu",
+                    moe_tol32),
+                    **moe_tc_timings("gather_swiglu", x, wg, wu, wd, idx, w))
             checks.append(rec)
             records[("gather_swiglu", dtype, E)] = rec
-            # ---- the int8 gather: per-pair rows [T, k, d], combine outside
+            # ---- the int8 gather: per-pair rows [T, k, d], then (main path)
+            # the slot-order combine
             rows = decode_moe.gather_swiglu_q_rows(x, qt, idx)
             err, words = compare(f"gather_swiglu_q[T={T},E={E},{key}]", rows,
                                  ref.gather_swiglu_q_rows(x, qt, idx), dtype)
             ysq = grouped_mlp.grouped_swiglu_q(x[order // k].contiguous(), qt, gs)
+            combined = decode_moe.gather_swiglu_q(x, qt, idx, w)
             torch.cuda.synchronize()
             bitwise_q = bool(torch.equal(rows, ysq[inv].reshape(T, k, d)))
             check(bitwise_q, f"int8 gather != int8 grouped bitwise at E={E}, "
                              f"{key}")
+            combine_q = bool(torch.equal(
+                combined, combine_in_order(rows, w).to(dtype)))
+            check(combine_q, f"int8 gather's combine != combine_in_order "
+                             f"bitwise at E={E}, {key}")
             b_ms, by = bound_ms(dtype, T * k, hit, d, f,
                                 T * d * size + T * k * (4 + d * size), int8=True)
+
+            def gather_q():
+                return decode_moe.gather_swiglu_q_rows(x, qt, idx)
+
+            def gather_q_combined():
+                return decode_moe.gather_swiglu_q(x, qt, idx, w)
+
+            def previous_q_combined():
+                return previous_moe("gather_swiglu_q", x, qt, None, None, idx,
+                                    w)
             rec = dict(name="gather_swiglu_q", shape=f"T={T} k={k} E={E} d={d} "
-                       f"f={f} int8 tables, x {key}", experts_hit=hit,
-                       max_err=err, tol=words,
-                       ms=time_ms(lambda: decode_moe.gather_swiglu_q_rows(
-                           x, qt, idx), reps=20),
-                       ms_with_combine=time_ms(
-                           lambda: decode_moe.gather_swiglu_q(x, qt, idx, w),
-                           reps=20),
+                       f"f={f} int8 tables, x {key}",
+                       route=moe_tc.route_q(dtype, d, f), experts_hit=hit,
+                       max_err=err, tol=words, ms=time_ms(gather_q, reps=20),
+                       device_ms=graph_ms(gather_q),
+                       ms_with_combine=time_ms(gather_q_combined, reps=20),
+                       device_ms_with_combine=graph_ms(gather_q_combined),
                        bound_ms=b_ms, bound_by=by,
                        plain_ms=time_ms(lambda: ref.gather_swiglu_q_rows(
                            x, qt, idx), reps=3, rounds=3),
-                       bitwise_vs_grouped=bitwise_q)
+                       bitwise_vs_grouped=bitwise_q,
+                       combine_bitwise_vs_combine_in_order=combine_q)
+            if dtype == torch.bfloat16:
+                rec.update(**moe_tc_timings("gather_swiglu_q", x, qt, None,
+                                            None, idx),
+                           previous_device_ms_with_combine=graph_ms(
+                               previous_q_combined))
+                rec.update(gather_tc_checks(
+                    gen_q, N, x, idx, w, rows,
+                    lambda r, i, v: decode_moe.gather_swiglu_q_rows(r, qt, i),
+                    Plain(lambda r, q, i, v: ref.gather_swiglu_q_rows(r, q, i),
+                          [qt], True), "gather_swiglu_q", moe_tol_q, qt=qt))
             checks.append(rec)
             records[("gather_swiglu_q", dtype, E)] = rec
             # ---- grouped: the largest admission row of the serve phase
@@ -1008,15 +1165,17 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
             order_g, _, gs_g = sort_pairs(idg, E, k)
             xs = xg[order_g // k].contiguous()
             hit = int((gs_g > 0).sum())
-            for name, fn, int8 in (
-                    ("grouped_swiglu",
-                     lambda: grouped_mlp.grouped_swiglu(xs, wg, wu, wd, gs_g),
-                     False),
-                    ("grouped_swiglu_q",
-                     lambda: grouped_mlp.grouped_swiglu_q(xs, qt, gs_g), True)):
-                plain = ops.KERNELS[name].plain
-                pfn = ((lambda: plain(xs, qt, gs_g)) if int8
-                       else (lambda: plain(xs, wg, wu, wd, gs_g)))
+            for name, int8 in (("grouped_swiglu", False),
+                               ("grouped_swiglu_q", True)):
+                tabs = [qt] if int8 else [wg, wu, wd]
+                kern = ops.KERNELS[name]
+                wrapper = getattr(grouped_mlp, name)
+
+                def fn(rows=xs, sizes=gs_g, wrapper=wrapper, tabs=tabs):
+                    return wrapper(rows.contiguous(), *tabs, sizes)
+
+                def pfn(plain=kern.plain, tabs=tabs):
+                    return plain(xs, *tabs, gs_g)
                 got = fn()
                 err, words = compare(f"{name}[T={Tg},E={E},{key}]", got, pfn(),
                                      dtype)
@@ -1024,22 +1183,26 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                                     2 * Tg * d * size + E * 4, int8=int8)
                 rec = dict(name=name, shape=f"T={Tg} E={E} d={d} f={f} "
                            f"{'int8 tables, x ' if int8 else ''}{key}",
+                           route=moe_route(name, dtype, d, f),
                            experts_hit=hit, max_err=err, tol=words,
-                           ms=time_ms(fn, reps=3, rounds=3), bound_ms=b_ms,
+                           ms=time_ms(fn, reps=3, rounds=3),
+                           device_ms=graph_ms(fn, calls=10), bound_ms=b_ms,
                            bound_by=by, plain_ms=time_ms(pfn, reps=1, rounds=3))
-                if not int8:
-                    rec.update(route=moe_tc.route(dtype, d, f),
-                               device_ms=graph_ms(fn, calls=10))
-                    if dtype == torch.bfloat16:
-                        rec.update(grouped_tc_checks(gen, xs, wg, wu, wd, gs_g,
-                                                     got))
+                if dtype == torch.bfloat16:
+                    rec.update(moe_tc_timings(
+                        name, xs, *tabs, *([None, None] if int8 else []), gs_g))
+                    rec.update(grouped_tc_checks(
+                        gen_q if int8 else gen, xs, gs_g, got, fn,
+                        Plain(kern.plain, tabs, int8), name,
+                        moe_tol_q if int8 else moe_tol32,
+                        qt=tabs[0] if int8 else None))
                 checks.append(rec)
                 records[(name, dtype, E)] = rec
             del wg, wu, wd, qt, xs
         del full
         free()
-    # the main entries: bf16 at E = N; the merged shape (E = N / 2) and, for
-    # the routed pair, the fp32 CUDA-core route ride along
+    # the main entries: bf16 at E = N; the merged shape (E = N / 2) and the
+    # fp32 CUDA-core route ride along
     for name in ("gather_swiglu", "grouped_swiglu", "gather_swiglu_q",
                  "grouped_swiglu_q"):
         entries[name] = dict(records[(name, torch.bfloat16, N)], merged_shape={
@@ -1438,10 +1601,11 @@ def serve(cfg, model, trace, device, **ec_kw):
                          else None))
 
 
-#: kernels with a tensor-core route (bf16; for the MoE pair, at widths that
-#: are multiples of 8, as every served config's) beside their CUDA-core one
-#: (fp32)
-ROUTED = ("flash_attention", "swiglu_mlp", "gather_swiglu", "grouped_swiglu")
+#: kernels with a tensor-core route (bf16; for the MoE pairs, at widths that
+#: are multiples of 8, or 16 with int8 tables, as every served config's)
+#: beside their CUDA-core one (fp32)
+ROUTED = ("flash_attention", "swiglu_mlp", "gather_swiglu", "grouped_swiglu",
+          "gather_swiglu_q", "grouped_swiglu_q")
 
 
 def check_launches(res, n_layers: int, dispatch: str = "gather",
@@ -1696,14 +1860,20 @@ def cpu_witness(args, full_cfg, device):
         seconds=time.perf_counter() - t0)
 
 
-#: the device kernels of gather_swiglu's tensor-core route, the bf16 one
-GATHER_KERNEL_NAMES = ("gather_up_tc", "gather_down_tc", "combine_kernel")
+#: the device kernels of the decode MoE: the gather kernels' tensor-core
+#: routes (bf16 and int8 tables) with their combine, and the CUDA-core
+#: kernels of moe_swiglu.cuh (the int8 gather's route before the tensor-core
+#: one; in a MoE model's block nothing else runs them)
+GATHER_KERNEL_NAMES = ("gather_up_tc", "gather_down_tc", "gather_up_q_tc",
+                       "gather_down_q_tc", "combine_kernel",
+                       "swiglu_up_kernel", "swiglu_down_kernel")
 
 
 def profile_block(cfg, model, trace, device):
     """One steady decode block (8 slots busy) under torch.profiler: host wall
     time, the device's busy share, the kernels that take the device time and
-    gather_swiglu's share of it."""
+    the decode MoE's share of it (``gather_swiglu_ms``: the gather kernels
+    of the model's expert tables, bf16 or int8)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
     eng = Engine(engine_config(), cfg=cfg, params=model, device=device)
@@ -1735,6 +1905,20 @@ def profile_block(cfg, model, trace, device):
                 gather_swiglu_share_of_busy=gather_ms / busy_ms,
                 top=[dict(name=e.key[:60], count=e.count, ms=dev_us(e) / 1e3)
                      for e in rows[:8]])
+
+
+@contextlib.contextmanager
+def int8_moe_route(route: str):
+    """The int8 MoE pair's wrappers take ``route`` whatever ``moe_tc.route_q``
+    would choose, inside the block (for tracing the route before the
+    tensor-core one beside it in one run)."""
+    from repro_torch.kernels import moe_tc
+    chosen = moe_tc.route_q
+    moe_tc.route_q = lambda dtype, d, f: route
+    try:
+        yield
+    finally:
+        moe_tc.route_q = chosen
 
 
 def with_dispatch(cfg, name, B):
@@ -2260,25 +2444,31 @@ def contracts_dense(cfg, model, device, trace) -> dict:
 
 
 def contracts_int8(cfg, model, device):
-    """Int8 gather == int8 ragged on the logits of a decode step."""
+    """The int8-table model's contracts on one cache state: a decode step's
+    logits under gather and under ragged dispatch, K fused steps against the
+    same K steps driven one at a time, and a prompt's admission logits alone
+    and in a group of four, each bitwise."""
     from repro_torch.models import model as MD
-    gen = torch.Generator(device=device).manual_seed(5)
-    B, S = 8, 64
-    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=device)
-    lengths = torch.randint(8, S + 1, (B,), generator=gen, device=device)
-    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=device)
-    act = torch.ones((B,), dtype=torch.bool, device=device)
+    gcfg, toks, lengths, tok, act, _ = contract_inputs(cfg, device, seed=5)
+    B = toks.shape[0]
+
+    def fresh():
+        return admitted_cache(gcfg, model, toks, lengths, device)[1]
     out = {}
     for name in ("gather", "ragged"):
-        c = with_dispatch(cfg, name, B)
-        _, cache = admitted_cache(c, model, toks, lengths, device)
-        out[name], _ = MD.decode_step_slots(c, model, cache, tok, act)
+        out[name], _ = MD.decode_step_slots(with_dispatch(cfg, name, B), model,
+                                            fresh(), tok, act)
     torch.cuda.synchronize()
     bitwise = bool(torch.equal(out["gather"], out["ragged"]))
     check(bool(torch.isfinite(out["gather"]).all()),
           "int8 contracts: non-finite logits")
     check(bitwise, "int8 gather != int8 ragged on decode logits")
-    return dict(int8_gather_vs_ragged_logits_bitwise=bitwise)
+    return dict(int8_gather_vs_ragged_logits_bitwise=bitwise,
+                int8_fused_vs_stepwise_logits_bitwise=fused_vs_stepwise(
+                    gcfg, model, fresh, tok, act),
+                int8_admission_alone_vs_group_of_4_bitwise=(
+                    admission_alone_vs_group(gcfg, model, toks, lengths,
+                                             device)))
 
 
 # ---------------------------------------------------------------------------
@@ -2550,8 +2740,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode block of the uncompressed "
-                         "MoE model and of the dense model with torch.profiler "
-                         "and print where its time goes")
+                         "MoE model (bf16 and int8 expert tables) and of the "
+                         "dense model with torch.profiler and print where its "
+                         "time goes")
     ap.add_argument("--witness-layers", type=int, default=0,
                     help="also read the paged int8 pool's top-1 against the "
                          "bf16 pool at full width and this depth on the card "
@@ -2664,7 +2855,7 @@ def main(argv=None) -> int:
                            if numerics.mm_out_dtype_available()
                            else "bf16 product widened to fp32"))
     if args.profile:
-        emit("profile", model=cfg.name, card=card,
+        emit("profile", model=cfg.name, experts="bf16", card=card,
              **profile_block(cfg, model, trace, device))
     pred = {"dense": teacher_forced(cfg, model, trace, dense["tokens"], device)}
     for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
@@ -2694,6 +2885,13 @@ def main(argv=None) -> int:
          **contracts_int8(cfg, model, device))
     serve(cfg, model, trace[:2], device)
     res = serve(cfg, model, trace, device)
+    if args.profile:
+        emit("profile", model=cfg.name, experts="int8", card=card,
+             **profile_block(cfg, model, trace, device))
+        with int8_moe_route("cuda_core"):
+            emit("profile", model=cfg.name, experts="int8",
+                 int8_moe_route="cuda_core (the route before tensor_core)",
+                 card=card, **profile_block(cfg, model, trace, device))
     pred["int8 experts"] = teacher_forced(cfg, model, trace, dense["tokens"],
                                           device)
     record(res, "int8 experts, uncompressed", cfg, weights_gb(model),
@@ -2847,8 +3045,11 @@ def main(argv=None) -> int:
             max_abs_err=rec["max_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec.get("library_ms"), shape=rec["shape"],
+            **({"kernel_route": rec["route"]} if "route" in rec else {}),
             **{k: rec[k] for k in ("device_ms", "library_device_ms",
                                    "previous_ms", "previous_device_ms",
+                                   "ms_with_combine", "device_ms_with_combine",
+                                   "previous_device_ms_with_combine",
                                    "admission", "round_gu",
                                    "round_gu_exact_sums", "merged_shape",
                                    "cuda_core_route")

@@ -22,31 +22,6 @@
 namespace moe {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ y, const float* __restrict__ w,
-               T* __restrict__ out, int d, int k) {
-  const int t = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  float acc = 0.0f;
-  for (int j = 0; j < k; ++j) {
-    const float yv = Num<T>::to_f32(y[((size_t)t * k + j) * d + c]);
-    // explicit intrinsics: the compiler must not contract this into an fma,
-    // the ragged path's combine rounds the product and the sum separately
-    acc = __fadd_rn(acc, __fmul_rn(w[(size_t)t * k + j], yv));
-  }
-  out[(size_t)t * d + c] = Num<T>::from_f32(acc);
-}
-
-template <typename T>
-int combine_launch(const T* y, const float* w, T* out, int T_, int d, int k,
-                   cudaStream_t stream) {
-  combine_kernel<T><<<dim3(T_, ceil_div(d, kThreads)), kThreads, 0, stream>>>(
-      y, w, out, d, k);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int gather_launch(const void* x, const void* wg, const void* wu, const void* wd,
                   const int* idx, const float* w, void* h, void* y, void* out,
                   int T_, int E, int d, int f, int k, cudaStream_t stream) {
@@ -63,46 +38,6 @@ int gather_launch(const void* x, const void* wg, const void* wu, const void* wd,
 
 namespace moetc {
 
-// Runs tile(n) over the pairs whose id, clipped to [0, E), is e, in ascending
-// pair order, n <= kBM pairs at a time, their indices in list[0, n). The ids
-// are walked kThreads at a time and the matches appended to list (room for
-// kBM + kThreads); whenever kBM are held, or the walk has ended with some
-// held, a tile runs and the rest move to the front. No pair: no tile.
-template <typename F>
-__device__ __forceinline__ void for_each_pair_tile(const int* __restrict__ idx,
-                                                   int n_pairs, int E, int e,
-                                                   int* list, int* warp_n,
-                                                   F&& tile) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int held = 0;
-  for (int base = 0; base < n_pairs; base += kThreads) {
-    const int p = base + threadIdx.x;
-    const bool hit = p < n_pairs && min(max(idx[p], 0), E - 1) == e;
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_n[warp] = __popc(ballot);
-    __syncthreads();
-    int at = held, added = 0;
-#pragma unroll
-    for (int wi = 0; wi < kThreads / 32; ++wi) {
-      at += wi < warp ? warp_n[wi] : 0;
-      added += warp_n[wi];
-    }
-    if (hit) list[at + __popc(ballot & ((1u << lane) - 1u))] = p;
-    held += added;
-    __syncthreads();
-    while (held >= kBM) {
-      tile(kBM);
-      const int rest = held - kBM;  // < kThreads
-      const int v = threadIdx.x < rest ? list[kBM + threadIdx.x] : 0;
-      __syncthreads();
-      if (threadIdx.x < rest) list[threadIdx.x] = v;
-      held = rest;
-      __syncthreads();
-    }
-  }
-  if (held > 0) tile(held);
-}
-
 // h[pair] = round_bf16(silu(x[pair / k] . wg[e]) * (x[pair / k] . wu[e])) for
 // the pairs of expert e = blockIdx.y; grid: (ceil(f / kUpBN), E)
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -115,7 +50,7 @@ gather_up_tc(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   __shared__ int warp_n[kThreads / 32];
   const int e = blockIdx.y;
   const size_t off = (size_t)e * d * f;
-  bf16* smem = aligned_smem(smem_raw);
+  char* smem = aligned_smem(smem_raw);
   for_each_pair_tile(idx, n_pairs, E, e, list, warp_n, [&](int n) {
     if (threadIdx.x < n) x_row[threadIdx.x] = list[threadIdx.x] / k;
     __syncthreads();
@@ -136,7 +71,7 @@ gather_down_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
   __shared__ int warp_n[kThreads / 32];
   const int e = blockIdx.y;
   const bf16* wd_e = wd + (size_t)e * f * d;
-  bf16* smem = aligned_smem(smem_raw);
+  char* smem = aligned_smem(smem_raw);
   for_each_pair_tile(idx, n_pairs, E, e, list, warp_n, [&](int n) {
     down_tile<kDownBN>(smem, h, f, Tile{list, list, n}, wd_e, y, d,
                        blockIdx.x * kDownBN);

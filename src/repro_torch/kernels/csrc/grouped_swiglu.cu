@@ -31,17 +31,6 @@ int grouped_plain(const void* x, const void* wg, const void* wu, const void* wd,
 
 namespace moetc {
 
-// This block's rows: the segment tile SegmentLayout gives blockIdx.y, as a
-// row list.
-__device__ __forceinline__ moe::RowBlock segment_rows(const int* group_sizes,
-                                                      int E, int T, int* rows) {
-  const moe::RowBlock rb =
-      moe::SegmentLayout{group_sizes, E, T, kBM}.block(blockIdx.y);
-  if (threadIdx.x < kBM) rows[threadIdx.x] = rb.row0 + threadIdx.x;
-  __syncthreads();
-  return rb;
-}
-
 // h[row] = round_bf16(silu(x_row . wg[e]) * (x_row . wu[e]))
 // grid: (ceil(f / kUpBN), segment tiles)
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -72,8 +61,6 @@ grouped_down_tc(const bf16* __restrict__ h, const bf16* __restrict__ wd,
                      blockIdx.x * kDownBN);
 }
 
-// Every expert can end in one partial tile, so ceil(T / kBM) + min(E, T)
-// bounds the number of segment tiles whatever the group sizes are.
 int grouped_tc(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
                const int* group_sizes, bf16* h, bf16* out, int T, int E, int d,
                int f, cudaStream_t s) {
@@ -81,7 +68,7 @@ int grouped_tc(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
   if (err != 0) return err;
   err = allow_ring<kDownBN, 1>(grouped_down_tc);
   if (err != 0) return err;
-  const int n_blocks = moe::ceil_div(T, kBM) + (E < T ? E : T);
+  const int n_blocks = segment_tiles(T, E);
   grouped_up_tc<<<dim3(moe::ceil_div(f, kUpBN), n_blocks), kThreads,
                   Ring<kUpBN, 2>::kSmem, s>>>(x, wg, wu, group_sizes, h, T, E,
                                               d, f);

@@ -15,7 +15,11 @@
 // __fmul_rn((float)q, scale[e][c]) with the scale of the OUTPUT column c (f for
 // wg/wu, d for wd), one rounding the compiler may not contract into the fma
 // that follows, and h stays fp32 (H = float): the only rounding to the model
-// type is the output's.
+// type is the output's. These are the CUDA-core routes: fp32 activations, and
+// bf16 ones at widths the tensor-core tiles do not take. bf16 activations at
+// widths that are multiples of 8 (plain tables) or 16 (int8 tables) run on
+// the tensor cores instead (moe_tc_sm90.cuh, with its own int8 contract:
+// the scale after the sum, h kept as a bf16 hi + lo pair).
 //
 // The order depends on nothing but (d, f): not on how many rows a block holds,
 // not on the token count, not on which of the two wrappers asked. That is what
@@ -305,6 +309,37 @@ swiglu_down_kernel(const H* __restrict__ h, const Wt* __restrict__ wd,
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The gather forms' slot-order combine, one pass on the stream: out[t] =
+// round_T(((0 + w[t,0]*y[t,0]) + w[t,1]*y[t,1]) + ...) in fp32, product and
+// sum rounded separately, j ascending: bitwise kernels/ref.py ::
+// combine_in_order and the ragged path's combine. y: [T, k, d]; w: [T, k]
+// fp32; out: [T, d]. Launched by gather_swiglu.cu and gather_swiglu_q.cu.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const T* __restrict__ y, const float* __restrict__ w,
+               T* __restrict__ out, int d, int k) {
+  const int t = blockIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float acc = 0.0f;
+  for (int j = 0; j < k; ++j) {
+    const float yv = Num<T>::to_f32(y[((size_t)t * k + j) * d + c]);
+    // explicit intrinsics: the compiler must not contract this into an fma,
+    // the ragged path's combine rounds the product and the sum separately
+    acc = __fadd_rn(acc, __fmul_rn(w[(size_t)t * k + j], yv));
+  }
+  out[(size_t)t * d + c] = Num<T>::from_f32(acc);
+}
+
+template <typename T>
+int combine_launch(const T* y, const float* w, T* out, int T_, int d, int k,
+                   cudaStream_t stream) {
+  combine_kernel<T><<<dim3(T_, ceil_div(d, kThreads)), kThreads, 0, stream>>>(
+      y, w, out, d, k);
+  return (int)cudaGetLastError();
+}
+
 
 // Launches the up and the down pass for `n_blocks` row blocks on `stream`.
 // `h` is scratch [rows, f] in H, `y` the result [rows, d] in T; sg/su/sd are

@@ -18,26 +18,30 @@ What the design does about it: two passes on the current stream (gate/up,
 then down). A block holds rows of ONE expert and finds its segment by
 walking ``group_sizes`` itself (expert e contributes ``ceil(size / R)``
 blocks, so a zero-sized group contributes none and cannot be confused with a
-neighbour). Plain tables take two routes
-(:func:`repro_torch.kernels.moe_tc.route`, counted per route):
+neighbour). Each form takes two routes, counted per route: plain tables by
+:func:`repro_torch.kernels.moe_tc.route`, int8 tables by
+:func:`repro_torch.kernels.moe_tc.route_q`.
 
-* ``tensor_core`` (bf16, d and f multiples of 8; ``csrc/grouped_swiglu.cu``
+* ``tensor_core`` (bf16 x, d and f multiples of 8 for plain tables and of 16
+  for int8 ones; ``csrc/grouped_swiglu.cu`` / ``csrc/grouped_swiglu_q.cu``
   over ``csrc/moe_tc_sm90.cuh``): R = 64 rows (one warpgroup) and one column
   tile a block on ``wgmma`` (fp32 accumulate), the expert's tables streamed
   through a ``cp.async`` ring once per column tile for the whole segment
-  (about 16 rows at admission), pad rows zero-filled and never stored. The
-  tile plan (:func:`repro_torch.kernels.moe_tc.plan`) and the tile code are
-  ``gather_swiglu``'s.
-* ``cuda_core`` (fp32, odd widths; ``csrc/moe_swiglu.cuh``): up to 8 rows in
-  shared memory, so every weight element a block loads (and, int8,
-  dequantizes with one fp32 multiply) serves 8 rows; fp32 on the CUDA cores.
+  (about 16 rows at admission), pad rows zero-filled and never stored. Int8
+  tables arrive at half the bytes and are widened to bf16 in shared memory;
+  their scales are applied after the sums and h crosses the passes as a bf16
+  hi + lo pair (``moe_tc_sm90.cuh``'s int8 contract). The tile plan
+  (:func:`repro_torch.kernels.moe_tc.plan` / ``plan_q``) and the tile code
+  are the gather kernels'.
+* ``cuda_core`` (fp32, other widths; ``csrc/moe_swiglu.cuh``): up to 8 rows
+  in shared memory, so every weight element a block loads (and, int8,
+  dequantizes with one fp32 multiply) serves 8 rows; fp32 on the CUDA cores,
+  int8 with ``h`` kept fp32 between the passes.
 
-The int8 form (``csrc/grouped_swiglu_q.cu``) runs on the CUDA cores and
-keeps ``h`` fp32 between the passes. The TPU kernels' per-expert segment
-padding, their ``block_expert`` table, the scatter into a padded buffer and
-the blocked f axis (which made the TPU int8 kernel only allclose to its
-oracle) are not carried over. A row's arithmetic is the gather kernel's of
-the same form and route, bit for bit.
+The TPU kernels' per-expert segment padding, their ``block_expert`` table,
+the scatter into a padded buffer and the blocked f axis (which made the TPU
+int8 kernel only allclose to its oracle) are not carried over. A row's
+arithmetic is the gather kernel's of the same form and route, bit for bit.
 """
 from __future__ import annotations
 
@@ -47,10 +51,13 @@ from repro_torch.kernels import _common, moe_tc, ref
 
 GROUPED = _common.Kernel("grouped_swiglu", ref.grouped_swiglu,
                          routes=moe_tc.ROUTES)
-GROUPED_Q = _common.Kernel("grouped_swiglu_q", ref.grouped_swiglu_q)
+GROUPED_Q = _common.Kernel("grouped_swiglu_q", ref.grouped_swiglu_q,
+                           routes=moe_tc.ROUTES)
 #: the C entry point of each route
 ENTRY = {"tensor_core": "grouped_swiglu_tc_launch",
          "cuda_core": "grouped_swiglu_launch"}
+ENTRY_Q = {"tensor_core": "grouped_swiglu_q_tc_launch",
+           "cuda_core": "grouped_swiglu_q_launch"}
 
 def rows_per_block(d: int, f: int) -> int:
     """Largest supported row count whose fp32 rows fit in shared memory."""
@@ -108,8 +115,9 @@ def grouped_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def grouped_swiglu_q(x: torch.Tensor, qt,
                      group_sizes: torch.Tensor) -> torch.Tensor:
-    """Launch the int8 CUDA kernel. x: [T, d] rows sorted by expert; qt:
-    ``QuantizedExpertTables`` (int8 tables, fp32 keepdim scales);
+    """Launch the int8 kernels of the route of ``(x.dtype, d, f)``
+    (:func:`repro_torch.kernels.moe_tc.route_q`). x: [T, d] rows sorted by
+    expert; qt: ``QuantizedExpertTables`` (int8 tables, fp32 keepdim scales);
     group_sizes: [E] integers summing to T. Returns [T, d] in ``x.dtype``.
     Everything must be contiguous and on one CUDA device; raises
     otherwise."""
@@ -118,19 +126,30 @@ def grouped_swiglu_q(x: torch.Tensor, qt,
                          "(kernels.ops routes CPU tensors to the plain version)")
     T, d, E, f = _common.check_qtables("grouped_swiglu_q", x, qt)
     _check_groups("grouped_swiglu_q", x, group_sizes, E)
-    rows = rows_per_block(d, f)
+    path = moe_tc.route_q(x.dtype, d, f)
+    if path == "cuda_core":
+        rows = rows_per_block(d, f)
     out = torch.empty((T, d), dtype=x.dtype, device=x.device)
     if T == 0:
         return out
     gs32 = group_sizes.to(torch.int32).contiguous()
-    h = torch.empty((T, f), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        code = _common.launcher("grouped_swiglu_q_launch", 10, 6)(
-            x.data_ptr(), qt.wg.data_ptr(), qt.wu.data_ptr(), qt.wd.data_ptr(),
+    ptrs = (x.data_ptr(), qt.wg.data_ptr(), qt.wu.data_ptr(), qt.wd.data_ptr(),
             qt.wg_scale.data_ptr(), qt.wu_scale.data_ptr(),
-            qt.wd_scale.data_ptr(), gs32.data_ptr(), h.data_ptr(),
-            out.data_ptr(), T, E, d, f, rows, _common.DTYPE_CODES[x.dtype],
-            _common.stream_of(x))
+            qt.wd_scale.data_ptr(), gs32.data_ptr())
+    with torch.cuda.device(x.device):
+        if path == "tensor_core":
+            hi = torch.empty((T, f), dtype=x.dtype, device=x.device)
+            lo = torch.empty_like(hi)
+            p = moe_tc.plan_q(d, f, _common.n_sms(x.device))
+            code = _common.launcher(ENTRY_Q[path], 11, 9,
+                                    source="grouped_swiglu_q")(
+                *ptrs, hi.data_ptr(), lo.data_ptr(), out.data_ptr(), T, E, d,
+                f, *p.args(), _common.stream_of(x))
+        else:
+            h = torch.empty((T, f), dtype=torch.float32, device=x.device)
+            code = _common.launcher(ENTRY_Q[path], 10, 6)(
+                *ptrs, h.data_ptr(), out.data_ptr(), T, E, d, f, rows,
+                _common.DTYPE_CODES[x.dtype], _common.stream_of(x))
     _common.check_launch("grouped_swiglu_q", code)
-    GROUPED_Q.count()
+    GROUPED_Q.count(path)
     return out

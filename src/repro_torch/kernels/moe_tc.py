@@ -1,22 +1,29 @@
-"""The routes and the tile plan of the bf16 MoE kernels ``gather_swiglu`` and
-``grouped_swiglu`` (``csrc/moe_tc_sm90.cuh``).
+"""The routes and the tile plan of the MoE kernels on Hopper's tensor cores:
+the bf16 pair ``gather_swiglu`` / ``grouped_swiglu`` and the int8 pair
+``gather_swiglu_q`` / ``grouped_swiglu_q`` (``csrc/moe_tc_sm90.cuh``).
 
-Both kernels take the same route for the same ``(dtype, d, f)``
-(:func:`route`), chosen before launch and counted per route:
+The two kernels of a pair take the same route for the same ``(dtype, d, f)``
+(:func:`route` for bf16 tables, :func:`route_q` for int8 ones), chosen
+before launch and counted per route:
 
-* bf16 with d and f multiples of 8 -> ``tensor_core``: up to 64 rows of one
-  expert a block on ``wgmma`` (bf16 in, fp32 accumulate), the expert's tables
-  streamed through a ``cp.async`` ring once per column tile however many rows
-  share them;
+* bf16 activations with d and f multiples of 8 (bf16 tables) or 16 (int8
+  tables) -> ``tensor_core``: up to 64 rows of one expert a block on
+  ``wgmma`` (bf16 in, fp32 accumulate), the expert's tables streamed through
+  a ``cp.async`` ring once per column tile however many rows share them. An
+  int8 table arrives at half the bytes and is widened to bf16 in shared
+  memory (exact); its scales are applied after the sums, and h crosses the
+  passes as a bf16 hi + lo pair (about 16 bits of the fp32 h the reference
+  keeps);
 * anything else (fp32, or bf16 at other widths) -> ``cuda_core``: the kernels
   of ``csrc/moe_swiglu.cuh``, which take any width. On tensor cores fp32
   would become TF32, so fp32 stays there, bit for bit as before.
 
-Both tensor-core kernels run one tile plan (:func:`plan`), a function of
-(d, f, SM count) alone, never of T, k, the group sizes or the ids: the same
-instruction shape over the same k-tiles in ascending order with the same
-column tile, so a pair's row has the same bits from either kernel and at any
-row count.
+Both kernels of a pair run one tile plan (:func:`plan` for bf16 tables,
+:func:`plan_q` for int8 ones: the same tiles, a shallower ring), a function
+of (d, f, SM count) alone, never of T, k, the group sizes or the ids: the
+same instruction shape over the same k-tiles in ascending order with the
+same column tile, so a pair's row has the same bits from either kernel of a
+pair and at any row count.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ ROUTES = ("tensor_core", "cuda_core")
 
 #: csrc/moe_tc_sm90.cuh: kBM, kUpBN, kDownBN, kBK, kStages
 M_TILE, UP_N_TILE, DOWN_N_TILE, K_TILE, STAGES = 64, 64, 128, 64, 3
+#: csrc/moe_tc_sm90.cuh: kStagesQ, the ring depth with int8 tables
+STAGES_Q = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +74,8 @@ class Plan:
 @functools.lru_cache(maxsize=None)
 def plan(d: int, f: int, n_sms: int) -> Plan:
     """The tile plan of the tensor-core route for widths (d, f) on a card of
-    ``n_sms`` SMs. One plan serves every width and the H100's 132 SMs: three
+    ``n_sms`` SMs, for both pairs. One plan serves every width and the
+    H100's 132 SMs: three
     blocks an SM of 64-column up tiles and 128-column down tiles give each
     expert that is hit f / 64 and d / 128 blocks, enough to fill the card at
     decode (about 49 experts) and at admission (all of them). On an H100
@@ -77,12 +87,36 @@ def plan(d: int, f: int, n_sms: int) -> Plan:
                 k_tile=K_TILE, stages=STAGES)
 
 
-def route(dtype: torch.dtype, d: int, f: int) -> str:
-    """``tensor_core`` for bf16 with d and f multiples of 8, ``cuda_core``
-    for fp32 or other widths; raises for another dtype. Launches nothing."""
+@functools.lru_cache(maxsize=None)
+def plan_q(d: int, f: int, n_sms: int) -> Plan:
+    """The int8 pair's tile plan: :func:`plan`'s tiles with a ring of
+    ``STAGES_Q`` stages. An int8 stage carries half a bf16 stage's weight
+    bytes beside the same A tile, and its weights are widened in a staging
+    tile; on an H100 two stages (four up-pass and three down-pass blocks an
+    SM) ran faster than three at decode and at admission (PERF.md §6)."""
+    return dataclasses.replace(plan(d, f, n_sms), stages=STAGES_Q)
+
+
+def _route(dtype: torch.dtype, d: int, f: int, multiple: int,
+           what: str) -> str:
     if dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"moe kernels: dtype {dtype} not supported "
+        raise TypeError(f"{what}: dtype {dtype} not supported "
                         f"(float32 or bfloat16)")
-    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+    if dtype == torch.bfloat16 and d % multiple == 0 and f % multiple == 0:
         return "tensor_core"
     return "cuda_core"
+
+
+def route(dtype: torch.dtype, d: int, f: int) -> str:
+    """The bf16 pair's route: ``tensor_core`` for bf16 with d and f
+    multiples of 8, ``cuda_core`` for fp32 or other widths; raises for
+    another dtype. Launches nothing."""
+    return _route(dtype, d, f, 8, "moe kernels")
+
+
+def route_q(dtype: torch.dtype, d: int, f: int) -> str:
+    """The int8 pair's route: ``tensor_core`` for bf16 activations with d and
+    f multiples of 16 (an int8 tile row is copied 16 values at a time),
+    ``cuda_core`` for fp32 or other widths; raises for another dtype.
+    Launches nothing."""
+    return _route(dtype, d, f, 16, "moe int8 kernels")
