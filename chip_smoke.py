@@ -27,7 +27,14 @@ one JSON line:
             one full-width layer on the card == on the CPU, bitwise. The paged
             kernels are held to half an output ulp against the plain version
             at fp32, on a peaked softmax, and that tolerance must reject the
-            plain version with each slot's last row dropped; flash_attention
+            plain version with each slot's last row dropped; their split plan
+            (a function of the table's shape only) on both kernels and both
+            pool types: lens on every table-entry (so every split) boundary,
+            1 and the whole table, lens 0 giving zeros, NaN in unowned blocks
+            and past lens moving nothing, a slot alone == among 8 == among
+            64, a table padded with sentinels to twice its length and the
+            dense cache's contiguous table == the paged table, all bitwise;
+            both timed at qwen3-moe's and granite-8b's heads; flash_attention
             likewise (plus the rounding of p to the input type), with its
             last visible key dropped, over causal / non-causal, Sq < Sk, odd
             lengths, GQA and query offsets, and its rows are bitwise the same
@@ -88,7 +95,8 @@ one JSON line:
             dispatch="ragged" at --variant-layers. With --profile, one
             decode block each of the bf16-table and the int8-table model under
             torch.profiler, the int8 one also with its MoE pair held to the
-            CUDA-core route (the route before the tensor-core one)
+            CUDA-core route (the route before the tensor-core one); each
+            profile reports the paged attention kernels' share
   dense     granite-8b at its published widths and full depth (36 layers),
             bf16, random weights: the contracts (fused K == stepwise and a
             prompt alone == in a group of four on logits, paged == dense on
@@ -100,7 +108,9 @@ one JSON line:
             contract against the cuBLAS MLP it replaced, for two sets of
             inputs; then the trace served with
             the dense cache, the paged pool (prefix hits) and the paged int8
-            pool, greedy, and the dense cache at temperature 0.7
+            pool, greedy, and the dense cache at temperature 0.7 (with
+            --profile, one decode block of the dense cache and one of the
+            paged int8 pool under torch.profiler)
   compress  MergeMoE on qwen3-moe-30b-a3b at full width, depth cut to 4
             layers (COMPRESS_LAYERS): calibration captured on the card through the
             model's forward with the config's own capacity dispatch (the
@@ -369,6 +379,118 @@ def check_sees_dropped_row(name, want_of, lens, dtype, vmax):
     check(not bool(torch.allclose(off.float(), want.float(), rtol=rtol,
                                   atol=atol)),
           f"{name}: the tolerance cannot tell a dropped last row")
+
+
+def paged_pools(int8, kp, vp):
+    """(kp, vp, ks, vs) of one pool type: as given, scales None, or (int8)
+    quantized here."""
+    from repro_torch.core import quant as Q
+    if not int8:
+        return kp, vp, None, None
+    kq, ks = Q.quantize_kv(kp)
+    vq, vs = Q.quantize_kv(vp)
+    return kq, vq, ks, vs
+
+
+def paged_run(q, pools, tab, lens):
+    """The paged kernel of the pools' type (int8 when they carry scales)."""
+    from repro_torch.kernels import paged_attention as PA
+    kp, vp, ks, vs = pools
+    if ks is None:
+        return PA.paged_attention(q, kp, vp, tab, lens)
+    return PA.paged_attention_q(q, kp, vp, ks, vs, tab, lens)
+
+
+def paged_split_checks(gen, dev, dtype, note) -> int:
+    """The split plan of both paged kernels (a function of (mb, bs) only) on
+    the card, in one pool type each (bf16 / fp32 pools, int8 pools):
+    - lens on every table-entry boundary (k bs - 1, k bs, k bs + 1: every
+      split holds whole entries, so these include every split boundary),
+      lens 1 and the whole table, held to the plain version at fp32 under
+      ``attn_tol_for``, which must reject the plain version with each slot's
+      last row dropped;
+    - lens 0 gives finite zeros and leaves the other slots' bits;
+    - NaN in every block a slot does not own and in its rows past lens (int8
+      pools: NaN scales) moves no output bit;
+    - bitwise: a slot alone == among 8 == among 64; its table padded with
+      sentinels to 2 mb == unpadded; the dense cache's contiguous table ==
+      the paged table over the same rows.
+    Returns the number of checks."""
+    key = dtype_key(dtype)
+    n = 0
+    nq, nkv, hd, bs, mb = 8, 2, 128, 16, 16
+    bounds = sorted({x for k in range(1, mb + 1)
+                     for x in (k * bs - 1, k * bs, k * bs + 1)
+                     if 0 < x <= mb * bs} | {1, mb * bs})
+    B = 64
+    lens = torch.tensor((bounds * 2)[:B], dtype=torch.int32, device=dev)
+    q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, B * mb + 1, bs,
+                                        mb, dtype, dev, lens=lens)
+    nb = kp.shape[0]
+    for int8 in (False, True):
+        kname = "paged_attention_q" if int8 else "paged_attention"
+        tag = f"{kname}[split plan,{key}]"
+        got, want, _, vmax, want_of = paged_pair(q, kp, vp, tab, lens, int8)
+        err, _ = compare(f"{tag} boundary lens", got, want, dtype,
+                         attn_tol_for(dtype, want, vmax))
+        check_sees_dropped_row(f"{tag} boundary lens", want_of, lens, dtype,
+                               vmax)
+        note(kname, err)
+        pools = paged_pools(int8, kp, vp)
+
+        def call(q, tab, lens, pools=pools):
+            return paged_run(q, pools, tab, lens)
+        ref = call(q, tab, lens)
+        among8 = call(q[:8].contiguous(), tab[:8].contiguous(),
+                      lens[:8].contiguous())
+        alone = [call(q[b:b + 1].contiguous(), tab[b:b + 1].contiguous(),
+                      lens[b:b + 1].contiguous()) for b in range(0, B, 7)]
+        padded = call(q, torch.cat([tab, torch.full_like(tab, nb)],
+                                   1).contiguous(), lens)
+        lens0 = lens.clone()
+        lens0[::5] = 0
+        y0 = call(q, tab, lens0)
+        torch.cuda.synchronize()
+        check(torch.equal(among8, ref[:8]), f"{tag}: 8 slots != 64 slots")
+        check(all(torch.equal(a[0], ref[b])
+                  for a, b in zip(alone, range(0, B, 7))),
+              f"{tag}: a slot alone != among 64")
+        check(torch.equal(padded, ref),
+              f"{tag}: the table padded to 2 mb != unpadded")
+        check(bool(torch.isfinite(y0).all()) and bool((y0[::5] == 0).all())
+              and all(torch.equal(y0[b], ref[b]) for b in range(B)
+                      if b % 5),
+              f"{tag}: lens 0 is not finite zeros beside unmoved slots")
+        # poison: every block no slot owns, and the rows past each slot's
+        # lens in its last block (int8: their scales)
+        owned = set(tab.reshape(-1).tolist()) - {nb}
+        poisoned = [t.clone() if t is not None else None for t in pools]
+        idx = 2 if int8 else 0
+        for blk in range(nb):
+            if blk not in owned:
+                poisoned[idx][blk] = float("nan")
+                poisoned[idx + 1][blk] = float("nan")
+        for b in range(B):
+            last = int(tab[b, (int(lens[b]) - 1) // bs])
+            poisoned[idx][last, (int(lens[b]) - 1) % bs + 1:] = float("nan")
+            poisoned[idx + 1][last, (int(lens[b]) - 1) % bs + 1:] = \
+                float("nan")
+        moved = paged_run(q, poisoned, tab, lens)
+        # the dense cache's layout: slot b's rows in blocks b mb .. b mb +
+        # mb - 1 of a pool of B mb blocks, read through a contiguous table
+        order = tab.long().clamp(max=nb - 1).reshape(-1)
+        dense = [t[order].contiguous() if t is not None else None
+                 for t in pools]
+        tabc = torch.arange(B * mb, dtype=torch.int32,
+                            device=dev).reshape(B, mb)
+        via_dense = paged_run(q, dense, tabc, lens)
+        torch.cuda.synchronize()
+        check(torch.equal(moved, ref),
+              f"{tag}: NaN in unowned blocks / rows past lens moved the output")
+        check(torch.equal(via_dense, ref),
+              f"{tag}: the contiguous (dense cache) table != the paged table")
+        n += 7
+    return n
 
 
 #: (B, H, nkv, Sq, Sk, hd, causal, qoff) as the reference's flash case list
@@ -674,6 +796,7 @@ def case_list(dev):
                          attn_tol_for(dtype, dense, float(vc.float().abs().max())))
         note("paged_attention", err)
         n += 2
+        n += paged_split_checks(gen, dev, dtype, note)
         q, k, v = flash_inputs(gen, 1, 2, 1, 8, 8, 272, dtype, dev)
         check_refused(lambda: FA.attend(q, k, v, True),
                       f"flash_attention[hd 272,{key}]")
@@ -1034,8 +1157,9 @@ class Plain:
         return self.fn(rows, *tabs, *ids)
 
 
-def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
-    """Every kernel at the shapes the serve phase gives it, full width."""
+def main_path_shapes(dev, cfg, admission_rows: int, paged_lens, dense_cfg):
+    """Every kernel at the shapes the serve phase gives it, full width (the
+    paged kernels also at the dense phase's heads, ``dense_cfg``)."""
     from repro_torch.core import quant as Q
     from repro_torch.kernels import decode_moe, grouped_mlp, ops
     from repro_torch.kernels import paged_attention as PA
@@ -1213,48 +1337,59 @@ def main_path_shapes(dev, cfg, admission_rows: int, paged_lens):
                 key: val for key, val in records[(name, torch.float32, N)]
                 .items() if key in MOE_TIMED_KEYS}
     # ---- paged attention at the serve shape: 8 slots, 32 / 4 heads, hd 128,
-    # blocks of KV_BLOCK rows, s_max 512, lens of a decode step of the trace
-    B, nq, nkv, hd = 8, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # blocks of KV_BLOCK rows, s_max 512, lens of a decode step of the trace;
+    # then at granite-8b's heads (32 / 8) with the same lens
+    B, nq, hd = 8, cfg.n_heads, cfg.hd
     mb = 512 // KV_BLOCK
     nb = B * mb
-    for dtype in (torch.bfloat16, torch.float32):
-        key = dtype_key(dtype)
-        q, kp, vp, tab, lens = paged_inputs(gen, B, nq, nkv, hd, nb, KV_BLOCK,
-                                            mb, dtype, dev,
-                                            lens=paged_lens.to(dev))
-        for int8 in (False, True):
-            name = "paged_attention_q" if int8 else "paged_attention"
-            got, want, want_typed, vmax, want_of = paged_pair(q, kp, vp, tab,
-                                                              lens, int8)
-            err, words = compare(f"{name}[serve,{key}]", got, want, dtype,
-                                 attn_tol_for(dtype, want, vmax))
-            check_sees_dropped_row(f"{name}[serve,{key}]", want_of, lens,
-                                   dtype, vmax)
-            # reported: the plain version in the input type rounds the
-            # softmax (and int8 pools' dequantized rows) to it
-            err_typed = float((got.float() - want_typed.float()).abs().max())
-            plain = ops.KERNELS[name].plain
-            if int8:
-                kq, ks = Q.quantize_kv(kp)
-                vq, vs = Q.quantize_kv(vp)
-                fn = (lambda: PA.paged_attention_q(q, kq, vq, ks, vs, tab, lens))
-                pfn = (lambda: plain(q, kq, vq, ks, vs, tab, lens))
-            else:
-                fn = (lambda: PA.paged_attention(q, kp, vp, tab, lens))
-                pfn = (lambda: plain(q, kp, vp, tab, lens))
-            b_ms, by = attn_bound_ms(q, lens, nkv,
-                                     1 if int8 else kp.element_size(), int8)
-            rec = dict(name=name, shape=f"B={B} nq={nq} nkv={nkv} hd={hd} "
-                       f"bs={KV_BLOCK} s_max={mb * KV_BLOCK} lens "
-                       f"{lens.tolist()} {'int8 pool, q ' if int8 else ''}{key}",
-                       max_err=err, tol=words,
-                       max_err_vs_plain_in_input_type=err_typed,
-                       ms=time_ms(fn, reps=50),
-                       bound_ms=b_ms, bound_by=by,
-                       plain_ms=time_ms(pfn, reps=10, rounds=3))
-            checks.append(rec)
-            if dtype == torch.bfloat16:
-                entries[name] = rec
+    for arch_cfg in (cfg, dense_cfg):
+        nkv = arch_cfg.n_kv_heads
+        for dtype in (torch.bfloat16, torch.float32):
+            key = dtype_key(dtype)
+            if arch_cfg is dense_cfg and dtype == torch.float32:
+                continue
+            q, kp, vp, tab, lens = paged_inputs(gen, B, arch_cfg.n_heads,
+                                                nkv, arch_cfg.hd, nb, KV_BLOCK,
+                                                mb, dtype, dev,
+                                                lens=paged_lens.to(dev))
+            for int8 in (False, True):
+                name = "paged_attention_q" if int8 else "paged_attention"
+                got, want, want_typed, vmax, want_of = paged_pair(
+                    q, kp, vp, tab, lens, int8)
+                tag = f"{name}[serve,{arch_cfg.name},{key}]"
+                err, words = compare(tag, got, want, dtype,
+                                     attn_tol_for(dtype, want, vmax))
+                check_sees_dropped_row(tag, want_of, lens, dtype, vmax)
+                # reported: the plain version in the input type rounds the
+                # softmax (and int8 pools' dequantized rows) to it
+                err_typed = float((got.float() - want_typed.float()).abs().max())
+                plain = ops.KERNELS[name].plain
+                pools = paged_pools(int8, kp, vp)
+                fn = (lambda: paged_run(q, pools, tab, lens))
+                pfn = (lambda: plain(q, *[t for t in pools if t is not None],
+                                     tab, lens))
+                b_ms, by = attn_bound_ms(q, lens, nkv,
+                                         1 if int8 else kp.element_size(),
+                                         int8)
+                rec = dict(name=name, shape=f"B={B} nq={arch_cfg.n_heads} "
+                           f"nkv={nkv} hd={arch_cfg.hd} bs={KV_BLOCK} "
+                           f"s_max={mb * KV_BLOCK} lens {lens.tolist()} "
+                           f"{'int8 pool, q ' if int8 else ''}{key}",
+                           max_err=err, tol=words,
+                           max_err_vs_plain_in_input_type=err_typed,
+                           ms=time_ms(fn, reps=50), device_ms=graph_ms(fn),
+                           bound_ms=b_ms, bound_by=by,
+                           plain_ms=time_ms(pfn, reps=10, rounds=3))
+                checks.append(rec)
+                if dtype != torch.bfloat16:
+                    continue
+                if arch_cfg is cfg:
+                    entries[name] = rec
+                else:
+                    entries[name]["dense_family_shape"] = {
+                        k: rec[k] for k in ("shape", "max_err", "ms",
+                                            "device_ms", "bound_ms",
+                                            "bound_by", "plain_ms")}
     return checks, entries, quant_bitwise
 
 
@@ -1869,14 +2004,21 @@ GATHER_KERNEL_NAMES = ("gather_up_tc", "gather_down_tc", "gather_up_q_tc",
                        "swiglu_up_kernel", "swiglu_down_kernel")
 
 
-def profile_block(cfg, model, trace, device):
-    """One steady decode block (8 slots busy) under torch.profiler: host wall
-    time, the device's busy share, the kernels that take the device time and
-    the decode MoE's share of it (``gather_swiglu_ms``: the gather kernels
-    of the model's expert tables, bf16 or int8)."""
+#: the paged attention kernels' namespace in csrc/paged_attention.cuh (the
+#: split and combine passes, and the single kernel they replaced)
+PAGED_KERNEL_TAG = "paged::"
+
+
+def profile_block(cfg, model, trace, device, **ec_kw):
+    """One steady decode block (8 slots busy) under torch.profiler, with the
+    cache ``ec_kw`` asks for (default the dense cache): host wall time, the
+    device's busy share, the kernels that take the device time, the decode
+    MoE's share of it (``gather_swiglu_ms``: the gather kernels of the
+    model's expert tables, bf16 or int8) and the paged attention kernels'
+    (``paged_attention_ms``: both passes, either pool type)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
-    eng = Engine(engine_config(), cfg=cfg, params=model, device=device)
+    eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device)
     for r in trace[:8]:
         eng.submit(r["prompt"], max_new_tokens=64, arrival_time=0.0)
     eng.step_block()                                   # admission + one block
@@ -1899,10 +2041,16 @@ def profile_block(cfg, model, trace, device):
                     "no device time)")
     gather_ms = sum(dev_us(e) for e in rows
                     if any(n in e.key for n in GATHER_KERNEL_NAMES)) / 1e3
+    paged = [e for e in rows if PAGED_KERNEL_TAG in e.key]
+    paged_ms = sum(dev_us(e) for e in paged) / 1e3
     return dict(wall_ms=wall_ms, steps=eng.ec.decode_block, layers=cfg.n_layers,
                 device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
                 device_kernels=n_kernels, gather_swiglu_ms=gather_ms,
                 gather_swiglu_share_of_busy=gather_ms / busy_ms,
+                paged_attention_ms=paged_ms,
+                paged_attention_share_of_busy=paged_ms / busy_ms,
+                paged_attention_kernels={e.key[:60]: dict(
+                    count=e.count, ms=dev_us(e) / 1e3) for e in paged},
                 top=[dict(name=e.key[:60], count=e.count, ms=dev_us(e) / 1e3)
                      for e in rows[:8]])
 
@@ -2741,8 +2889,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode block of the uncompressed "
                          "MoE model (bf16 and int8 expert tables) and of the "
-                         "dense model with torch.profiler and print where its "
-                         "time goes")
+                         "dense model (dense cache and paged int8 pool) with "
+                         "torch.profiler and print where its time goes")
     ap.add_argument("--witness-layers", type=int, default=0,
                     help="also read the paged int8 pool's top-1 against the "
                          "bf16 pool at full width and this depth on the card "
@@ -2794,7 +2942,7 @@ def main(argv=None) -> int:
     trace = make_trace(full_cfg.vocab_size, args.seed)
     n_cases, worst, invariance = case_list(device)
     checks, entries, quant_bitwise = main_path_shapes(
-        device, full_cfg, admission_rows, decode_lens(trace))
+        device, full_cfg, admission_rows, decode_lens(trace), dense_cfg)
     prompt = admission_rows // full_cfg.moe.top_k
     flash = flash_main_shapes(
         device, full_cfg,
@@ -2952,6 +3100,8 @@ def main(argv=None) -> int:
     if args.profile:
         emit("profile", model=dense_cfg.name, card=card,
              **profile_block(dense_cfg, model, dtrace, device))
+        emit("profile", model=dense_cfg.name, kv="paged int8", card=card,
+             **profile_block(dense_cfg, model, dtrace, device, **PAGED_INT8))
     for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
                          ("paged int8 KV", PAGED_INT8, "int8")):
         res = serve(dense_cfg, model, dtrace, device, **kw)
@@ -3047,6 +3197,7 @@ def main(argv=None) -> int:
             library_ms=rec.get("library_ms"), shape=rec["shape"],
             **({"kernel_route": rec["route"]} if "route" in rec else {}),
             **{k: rec[k] for k in ("device_ms", "library_device_ms",
+                                   "dense_family_shape",
                                    "previous_ms", "previous_device_ms",
                                    "ms_with_combine", "device_ms_with_combine",
                                    "previous_device_ms_with_combine",

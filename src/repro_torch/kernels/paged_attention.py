@@ -9,22 +9,40 @@ blocks, slot b's blocks listed in ``tab[b]`` (entries ``>= n_blocks`` are
 sentinels: clipped, then masked), and ``lens[b]`` rows are valid. The int8
 form reads int8 pools with per-(row, head) fp32 scales ``[n_blocks, bs, nkv]``.
 
-What bounds them on this card: bytes. Each valid row is read once per kv
-head, ``2 * lens * nkv * hd`` elements per slot (one byte each in int8, plus
-the scales), for about two flops per byte: some microseconds at the serve
-shape, so the launch itself dominates.
+What bounds them on this card: bytes, then latency. Each valid row is read
+once per kv head, ``2 * lens * nkv * hd`` elements per slot (one byte each in
+int8, plus the scales), for n_rep flops a byte (about 2 n_rep in int8): below
+the fp32 CUDA-core ridge of about 20, so the kernels stay fp32 on CUDA cores
+in both pool types (rows, logits, softmax and accumulator in fp32, rounded
+once at the output). At the serve shape the bytes take under a microsecond
+(0.71 us for qwen3-moe), so the latency of the loads and the two launches set
+the time.
 
 What the design does about it (``csrc/paged_attention.cuh``, one source per
-pool type): one block per (slot, kv head), its ``n_rep`` query heads one warp
-each, so every K/V row is loaded once for all of them (GQA); the block walks
-the slot's table entries in order, stages one pool block's valid rows in
-shared memory as fp32 (int8: one fp32 multiply by the row's scale) and
-carries the online-softmax state (running max, normaliser, fp32 accumulator)
-in registers from entry to entry, where the TPU kernel carried it in VMEM
-across its sequential grid. Rows past ``lens`` are never loaded, so a
-clipped sentinel or a stale block contributes exactly nothing. At the serve
-shape B x nkv = 32 blocks leave most of the 132 SMs idle; splitting the table
-walk across blocks with a second combine pass is the known fix, later work.
+pool type): the table walk is split. A split is ``split_rows(bs)`` rows
+(``SPLIT_ROWS`` at the served bs of 16, a whole number of table entries), a
+slot has ``n_splits(mb, bs)`` of them, and the split pass runs one block per
+(split, kv head, slot): its ``n_rep`` query heads share every K/V row (GQA),
+the rows stream through a ring of ``STAGES`` stages of ``CHUNK_ROWS`` rows by
+16-byte ``cp.async`` in the pool's type, the logits use eight lanes a row and
+a shuffle tree, and the online softmax runs over the split's rows in
+ascending order. Each block writes its partial (unnormalised accumulator, running max,
+normaliser) to an fp32 workspace; the combine pass merges a slot's partials
+in ascending split order and rounds once. The plan reads (mb, bs) and nothing
+else (not B, the pool size or the SM count), and the wrapper never reads
+``lens`` on the host, so a slot gives the same bits alone or among others, in
+a dense cache's contiguous table or in the pool's, and the call can be
+captured in a CUDA graph. Rows past ``lens`` are never loaded, so a clipped
+sentinel or a stale block contributes exactly nothing.
+
+Measured on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py``'s kernels
+phase, calls replayed from a CUDA graph) at qwen3-moe's serve shape (8 slots,
+32 / 4 heads, hd 128, bs 16, lens 51 to 239): 0.011 ms for the bf16 pool and
+0.012 ms for the int8 pool, against 0.067 and 0.069 ms for the single-pass
+kernel (one block per slot and kv head) this design replaced; the bytes
+would take 0.71 and 0.38 us, so the two launches and the latency of a
+block's loads set the time. The wrapper's own host work (checks, the
+workspace, the call) is about 0.03 ms.
 """
 from __future__ import annotations
 
@@ -37,6 +55,36 @@ from repro_torch.kernels import _common, ref
 
 PAGED = _common.Kernel("paged_attention", ref.paged_attention)
 PAGED_Q = _common.Kernel("paged_attention_q", ref.paged_attention_q)
+
+#: the split plan's constants, as ``csrc/paged_attention.cuh`` has them:
+#: rows a split at bs <= 32 (``kSplitRows``), rows a ring stage
+#: (``kChunkRows``), the ring's stages (``kStages``)
+SPLIT_ROWS = 32
+CHUNK_ROWS = 16
+STAGES = 2
+
+
+def split_rows(bs: int) -> int:
+    """Rows of one split: a whole number of table entries, the largest that
+    fits in ``SPLIT_ROWS`` (one entry when bs is larger)."""
+    return max(1, SPLIT_ROWS // bs) * bs
+
+
+def n_splits(mb: int, bs: int) -> int:
+    """Splits of a slot's table: the split pass's grid extent and the
+    workspace's split axis. A function of the table's shape only."""
+    return -(-mb * bs // split_rows(bs))
+
+
+def smem_bytes(n_rep: int, hd: int, elt: int, q_elt: int, int8: bool) -> int:
+    """Dynamic shared memory of the split pass (``paged::smem_bytes``): K and
+    V ring stages in the pool's type (``elt`` bytes), q in its own type
+    (``q_elt``), (int8) the rows' scales, the logits, the softmax state and
+    the split's table entries."""
+    return (2 * STAGES * CHUNK_ROWS * hd * elt + n_rep * hd * q_elt
+            + (2 * STAGES * CHUNK_ROWS * 4 if int8 else 0)
+            + n_rep * CHUNK_ROWS * 4 + 3 * n_rep * 4 + SPLIT_ROWS * 4)
+
 
 def _check(name, q, kp, vp, tab, lens, pool_dtype):
     if q.dtype not in _common.DTYPE_CODES:
@@ -65,24 +113,36 @@ def _check(name, q, kp, vp, tab, lens, pool_dtype):
             raise ValueError(f"{name}: {nm} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {nm} must be contiguous")
+    elt = kp.element_size()
+    if hd * elt % 16 or any(t.data_ptr() % 16 for t in (q, kp, vp)):
+        raise ValueError(f"{name}: pool rows of hd={hd} x {elt} bytes must be "
+                         f"a multiple of 16 bytes and q and the pools 16-byte "
+                         f"aligned (rows arrive by 16-byte copies)")
     mb = tab.shape[1]
-    smem = (nq // nkv * hd + bs * (hd + 1) + bs * hd) * 4
+    smem = smem_bytes(nq // nkv, hd, elt, q.element_size(),
+                      pool_dtype == torch.int8)
     if smem > _common.SMEM_LIMIT:
-        raise ValueError(f"{name}: a pool block of bs={bs} rows does not fit "
-                         f"in shared memory")
+        raise ValueError(f"{name}: the split pass needs {smem} bytes of shared "
+                         f"memory, more than {_common.SMEM_LIMIT}")
     return B, nq, hd, nb, bs, nkv, mb
 
 
 def _launch(kernel, symbol, ptrs, q, dims):
+    """Both passes: the split pass into a fresh fp32 workspace of B * nq *
+    n_splits(mb, bs) partials of hd + 2 numbers, then the combine pass into
+    the output. One launch on the kernel's count per call."""
     B, nq, hd, nb, bs, nkv, mb = dims
     out = torch.empty_like(q)
     if B == 0:
         return out
+    ws = torch.empty(B * nq * n_splits(mb, bs) * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
-        code = _common.launcher(symbol, len(ptrs) + 1, 7,
+        code = _common.launcher(symbol, len(ptrs) + 2, 7,
                                 tail=(ctypes.c_float, ctypes.c_int))(
-            *ptrs, out.data_ptr(), B, nb, bs, nkv, hd, mb, nq // nkv,
-            math.sqrt(hd), _common.DTYPE_CODES[q.dtype], _common.stream_of(q))
+            *ptrs, ws.data_ptr(), out.data_ptr(), B, nb, bs, nkv, hd, mb,
+            nq // nkv, math.sqrt(hd), _common.DTYPE_CODES[q.dtype],
+            _common.stream_of(q))
     _common.check_launch(kernel.name, code)
     kernel.count()
     return out

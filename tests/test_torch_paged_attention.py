@@ -18,7 +18,7 @@ import torch
 from repro.core import quant as RQ
 from repro.kernels import paged_attention as K_pa
 from repro.kernels import ref as ref_ref
-from repro_torch.kernels import ops, paged_attention as PA, ref
+from repro_torch.kernels import _common, ops, paged_attention as PA, ref
 
 from _torch_port import no_activation_mesh  # noqa: F401
 
@@ -196,7 +196,7 @@ def test_cpu_dispatch_takes_plain_paged_version_and_counts_no_launch(name):
     assert kern.LAUNCHES == before and kern.plain is getattr(ref, name)
 
 
-def test_paged_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
+def test_paged_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes(monkeypatch):
     q, kp, vp, tab, lens = _inputs(1, 2, 1, 16, 2, 4, 2)
     args = (torch.from_numpy(tab), torch.from_numpy(lens))
     with pytest.raises(ValueError, match="CUDA"):
@@ -208,3 +208,22 @@ def test_paged_kernel_wrappers_refuse_cpu_tensors_and_bad_shapes():
     with pytest.raises(TypeError, match="kp"):
         PA._check("t", q[1], kp[1].to(torch.int8), vp[1], *args,
                   torch.float32)
+    # rows arrive by 16-byte copies: fp32 rows of hd 6 (24 bytes) and int8
+    # rows of hd 8 are refused before launch
+    q6, kp6, vp6, tab6, lens6 = _inputs(1, 2, 1, 6, 2, 4, 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        PA._check("t", q6[1], kp6[1], vp6[1], torch.from_numpy(tab6),
+                  torch.from_numpy(lens6), torch.float32)
+    q8, kp8, vp8, tab8, lens8 = _inputs(1, 2, 1, 8, 2, 4, 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        PA._check("t", q8[1], kp8[1].to(torch.int8), vp8[1].to(torch.int8),
+                  torch.from_numpy(tab8), torch.from_numpy(lens8), torch.int8)
+    # the split pass's shared memory: the largest shape the wrapper takes
+    # (32 query heads a kv head, hd 256, fp32 rows, fp32 q) fits the card,
+    # and a layout that did not fit would be refused before launch
+    assert PA.smem_bytes(32, 256, 4, 4, False) <= _common.SMEM_LIMIT
+    assert PA._check("t", q[1], kp[1], vp[1], *args, torch.float32)
+    monkeypatch.setattr(PA, "smem_bytes",
+                        lambda *a: _common.SMEM_LIMIT + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        PA._check("t", q[1], kp[1], vp[1], *args, torch.float32)
