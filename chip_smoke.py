@@ -70,9 +70,12 @@ one JSON line:
             threefry bits
             and uniforms on the card == on the CPU, the Gumbel noise to 2
             ulps of max(|g|, 1)
-  contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise; a
+  contracts gather == ragged and fused-K == step-at-a-time on logits, bitwise
+            (and on the engine's CUDA graphs: tokens and cache); a
             prompt admitted alone and in a group of four gives bitwise-equal
-            logits (and what that costs per admission group); paged == dense
+            logits (each row replayed from its pad shape's graph, as the
+            engine admits; and what that costs per admission group, eager
+            and on the graphs); paged == dense
             on admission and decode logits, bitwise (dense decode runs the
             paged kernel over a contiguous table), and a prefix hit (its
             suffix padded to the whole prompt's bucket) == the whole
@@ -84,8 +87,12 @@ one JSON line:
   serve     qwen3-moe-30b-a3b at full width (depth cut to --layers), bf16,
             random weights from a seed, 16 requests on a Poisson trace (4 of
             them share a 128-token prefix) through the continuous-batching
-            engine: uncompressed with the dense cache, the paged pool (prefix
-            hits checked) and the paged int8 pool, then int8 expert tables;
+            engine, which on the card replays every decode block and every
+            admitted prompt from a CUDA graph (checked: replays == blocks and
+            admitted rows; the graphs' capture and instantiate seconds and
+            pool bytes reported): uncompressed with the dense cache, the
+            paged pool (prefix hits checked) and the paged int8 pool, then
+            int8 expert tables;
             merged (M = N/2 on the suffix) in bf16 and in int8. Teacher-forced
             top-1 agreement of each form with the dense bf16 engine, at the
             served batch (the dense engine's own stream must read 1.0, and so
@@ -96,7 +103,18 @@ one JSON line:
             decode block each of the bf16-table and the int8-table model under
             torch.profiler, the int8 one also with its MoE pair held to the
             CUDA-core route (the route before the tensor-core one); each
-            profile reports the paged attention kernels' share
+            profile reports the paged attention kernels' share, and is taken
+            twice: the block replayed from its graph and run eagerly
+  graphs    in every serve form of both families (and the single step of
+            decode_block=1), an engine replaying its graphs and one running
+            the same bodies eagerly, in lockstep on 16 requests: every
+            call's outputs (admission logits and first tokens at each pad
+            shape, each block or step) and the whole cache after every
+            engine step (pos, KV rows, pool blocks but the write-only sink,
+            the table), bitwise; then eager against graph in 10 alternating
+            pairs, ms per decode block and per admitted prompt of 64, 128
+            and 256 tokens (qwen3-moe with bf16 and int8 tables, granite-8b
+            with the dense cache and the paged int8 pool)
   dense     granite-8b at its published widths and full depth (36 layers),
             bf16, random weights: the contracts (fused K == stepwise and a
             prompt alone == in a group of four on logits, paged == dense on
@@ -1668,13 +1686,19 @@ PAGED_INT8 = dict(PAGED, kv_dtype="int8")
 def serve(cfg, model, trace, device, **ec_kw):
     """Drive the trace through an Engine. Returns a dict with the tokens,
     counters, the admission shapes and times, decode block times, kernel
-    launches and the engine's paging telemetry."""
+    launches, the engine's paging telemetry and its CUDA graphs (on the
+    card every decode block and every admitted prompt is a replay: checked
+    against the calls made)."""
     from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
     from repro_torch.serving import Engine
     eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device)
     admits, admit_ms, block_ms = [], [], []
     admit, multi, single = eng._admit_step, eng._decode_multi, eng._decode
     cuda = torch.device(device).type == "cuda"
+    check(isinstance(multi, ST.GraphedStep) == cuda
+          and isinstance(admit, ST.GraphedAdmit) == cuda,
+          f"an engine on {device} does not take its graphs as it should")
 
     def timed(fn, into):
         def run(*a):
@@ -1722,9 +1746,19 @@ def serve(cfg, model, trace, device, **ec_kw):
     check(c["host_syncs"] == len(admits) + len(block_ms),
           f"host_syncs {c['host_syncs']} != admissions {len(admits)} + "
           f"blocks {len(block_ms)}")
+    graphs = eng.graph_stats()
+    if cuda:
+        step = "decode block" if eng.ec.decode_block > 1 else "decode step"
+        check(graphs[step]["replays"] == len(block_ms),
+              f"{graphs[step]['replays']} replays of the {step} graph for "
+              f"{len(block_ms)} blocks")
+        check(sum(g["replays"] for k, g in graphs.items()
+                  if k.startswith("admit")) == sum(s[0] for s in admits),
+              "an admitted prompt was not a replay of its pad shape's graph")
     if eng._alloc is not None:
         eng._alloc.check_invariants()
     return dict(tokens=[list(r.out_tokens) for r in reqs], counters=dict(c),
+                graphs=graphs,
                 admits=admits, admit_ms=admit_ms, block_ms=block_ms,
                 wall_s=wall, launches=launches, routes=routes,
                 n_blocks=len(block_ms),
@@ -1823,8 +1857,12 @@ def free():
 
 def serve_summary(res, card):
     n_tok = sum(len(t) for t in res["tokens"])
+    graphs = graph_summary(res["graphs"])
     return dict(card=card, requests=len(res["tokens"]), tokens=n_tok,
                 wall_s=res["wall_s"], tokens_per_s=n_tok / res["wall_s"],
+                # the graphs are set up at their first use, inside the run
+                tokens_per_s_without_graph_setup=n_tok / (
+                    res["wall_s"] - graphs["setup_s"]),
                 admissions=len(res["admits"]),
                 admitted_rows=sum(s[0] for s in res["admits"]),
                 largest_admission=max(res["admits"], key=lambda s: s[0] * s[1]),
@@ -1837,7 +1875,20 @@ def serve_summary(res, card):
                 paging_stats=res["paging_stats"],
                 kv_dtype_served=res["kv_dtype_served"],
                 expert_weight_dtypes=res["expert_weight_dtypes"],
-                finite_lane="all ones (a zero raises NumericHealthError)")
+                finite_lane="all ones (a zero raises NumericHealthError)",
+                cuda_graphs=graphs)
+
+
+def graph_summary(graphs: dict) -> dict:
+    """An engine's CUDA graphs: how many, their warm-up, capture and
+    instantiate seconds (``setup_s``: the three summed), the bytes their
+    captures added to the pools (``torch.cuda.memory_reserved`` around each
+    capture), and each graph's own numbers."""
+    sums = {k: sum(g[k] for g in graphs.values())
+            for k in ("warm_up_s", "capture_s", "instantiate_s")}
+    return dict(count=len(graphs), **sums, setup_s=sum(sums.values()),
+                pool_bytes=sum(g["reserved_bytes"] for g in graphs.values()),
+                by_graph=graphs)
 
 
 def teacher_forced(cfg, model, trace, tokens, device, kv=None, **ec_kw):
@@ -2009,42 +2060,63 @@ GATHER_KERNEL_NAMES = ("gather_up_tc", "gather_down_tc", "gather_up_q_tc",
 PAGED_KERNEL_TAG = "paged::"
 
 
-def profile_block(cfg, model, trace, device, **ec_kw):
+def profile_block(cfg, model, trace, device, eager: bool = False, **ec_kw):
     """One steady decode block (8 slots busy) under torch.profiler, with the
-    cache ``ec_kw`` asks for (default the dense cache): host wall time, the
-    device's busy share, the kernels that take the device time, the decode
-    MoE's share of it (``gather_swiglu_ms``: the gather kernels of the
-    model's expert tables, bf16 or int8) and the paged attention kernels'
-    (``paged_attention_ms``: both passes, either pool type)."""
+    cache ``ec_kw`` asks for (default the dense cache), replayed from the
+    engine's CUDA graph (``eager``: the same body run eagerly): host wall
+    time, the device span (CUDA events around the block), the device's busy
+    share (the sum of the kernels' own rows), the kernels that take the
+    device time, the decode MoE's share of it (``gather_swiglu_ms``: the
+    gather kernels of the model's expert tables, bf16 or int8) and the
+    paged attention kernels' (``paged_attention_ms``: both passes, either
+    pool type)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Engine
     eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device)
+    if eager:
+        eager_steps(eng)
     for r in trace[:8]:
         eng.submit(r["prompt"], max_new_tokens=64, arrival_time=0.0)
-    eng.step_block()                                   # admission + one block
+    eng.step_block()                   # admission + one block (+ captures)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         eng.step_block()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    span_ms = start.elapsed_time(end)
+    mode = "eager" if eager else "graph"
 
     def dev_us(e):
         return float(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0)))
 
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    every = prof.key_averages()
+    # the kernels' own rows; a CPU op's row also carries the device time of
+    # the kernels it launched, so a sum over every row counts a library
+    # kernel twice (that sum is kept beside as ``..._with_op_rows``)
+    rows = sorted((e for e in every if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
+    busy_all_ms = sum(dev_us(e) for e in every) / 1e3
     n_kernels = sum(e.count for e in rows if dev_us(e) > 0)
     if busy_ms == 0.0:
-        return dict(wall_ms=wall_ms, device="not measured (the profiler saw "
-                    "no device time)")
+        return dict(mode=mode, wall_ms=wall_ms, device_span_ms=span_ms,
+                    device="not measured (the profiler saw no kernel; "
+                    "device_span_ms is CUDA events around the block)")
     gather_ms = sum(dev_us(e) for e in rows
                     if any(n in e.key for n in GATHER_KERNEL_NAMES)) / 1e3
     paged = [e for e in rows if PAGED_KERNEL_TAG in e.key]
     paged_ms = sum(dev_us(e) for e in paged) / 1e3
-    return dict(wall_ms=wall_ms, steps=eng.ec.decode_block, layers=cfg.n_layers,
+    return dict(mode=mode, wall_ms=wall_ms, device_span_ms=span_ms,
+                steps=eng.ec.decode_block, layers=cfg.n_layers,
                 device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+                device_busy_ms_with_op_rows=busy_all_ms,
                 device_kernels=n_kernels, gather_swiglu_ms=gather_ms,
                 gather_swiglu_share_of_busy=gather_ms / busy_ms,
                 paged_attention_ms=paged_ms,
@@ -2079,24 +2151,61 @@ def with_dispatch(cfg, name, B):
         gather_max_tokens=max(cfg.moe.gather_max_tokens, B)))
 
 
+def graph_maker(device):
+    """A graph factory as an engine makes one (one pool, one side stream),
+    or None off the card, where the steps run eagerly."""
+    from repro_torch.launch import steps as ST
+    if torch.device(device).type != "cuda":
+        return None
+    pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream()
+    return lambda: ST.CudaGraph(pool, stream)
+
+
+def admission_step(cfg, model, cache, device, paged=False):
+    """The engine's admission step over ``cache``: on the card each row
+    replayed from its pad shape's CUDA graph (``steps.GraphedAdmit``), as
+    the engine admits; elsewhere the eager builder."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    consts = MD.slot_consts(cfg, cache)
+    new_graph = graph_maker(device)
+    if new_graph is None:
+        build = ST.make_slot_admit_paged if paged else ST.make_slot_admit
+        return build(cfg, consts)
+    row = (ST.admit_row_paged if paged else ST.admit_row)(cfg, consts)
+    return ST.GraphedAdmit(row, model, cache, new_graph)
+
+
+def decode_step(step, model, cache, device, like):
+    """A decode step of launch/steps.py over ``cache``: on the card
+    replayed from a CUDA graph (``steps.GraphedStep``, static buffers shaped
+    like the tensors ``like``), as the engine decodes; elsewhere as it is."""
+    from repro_torch.launch import steps as ST
+    new_graph = graph_maker(device)
+    if new_graph is None:
+        return step
+    return ST.GraphedStep(step, model, cache,
+                          [torch.empty_like(t) for t in like], new_graph)
+
+
 def admitted_cache(cfg, model, toks, lengths, device, paged=False):
     """A cache of len(toks) slots (s_max 128) holding the prompts, admitted
-    through the engine's admission step (each row alone)."""
-    from repro_torch.launch import steps as ST
+    through the engine's admission step (each row alone, replayed from its
+    CUDA graph on the card)."""
     from repro_torch.models import model as MD
     B = toks.shape[0]
     slots = np.arange(B, dtype=np.int32)
     if not paged:
         cache = MD.init_slot_cache(cfg, B, 128, device)
-        logits, _, cache = ST.make_slot_admit(cfg)(model, cache, toks, lengths,
-                                                   slots)
+        logits, _, cache = admission_step(cfg, model, cache, device)(
+            model, cache, toks, lengths, slots)
         return logits, cache
     nb = B * 128 // KV_BLOCK
     cache = MD.init_paged_cache(cfg, B, 128, device, n_blocks=nb,
                                 block_size=KV_BLOCK)
     cache["tab"][:B] = torch.arange(nb, dtype=torch.int32,
                                     device=device).reshape(B, -1)
-    logits, _, cache = ST.make_slot_admit_paged(cfg)(
+    logits, _, cache = admission_step(cfg, model, cache, device, paged=True)(
         model, cache, toks, lengths, slots,
         torch.zeros((B,), dtype=torch.int32, device=device))
     return logits, cache
@@ -2134,6 +2243,172 @@ def alternating_ms(fns: dict, pairs: int) -> dict:
                 ratio_range=[min(ratios), max(ratios)], ms=ms)
 
 
+# ---------------------------------------------------------------------------
+# CUDA graphs: graph == eager, and eager against graph in time
+# ---------------------------------------------------------------------------
+
+def eager_steps(eng):
+    """Swap ``eng``'s graphed steps for the same bodies run eagerly (with
+    the same ``slot_consts``): the baseline of the comparisons. An engine
+    on the card never does this itself."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    cfg, ec = eng.cfg, eng.ec
+    consts = MD.slot_consts(cfg, eng.cache)
+    admit = ST.make_slot_admit_paged if eng._alloc is not None \
+        else ST.make_slot_admit
+    eng._admit_step = admit(cfg, consts)
+    eng._decode = ST.make_slot_decode(cfg, ec.temperature, consts)
+    eng._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
+                                                  ec.temperature, consts)
+    eng._graphed = {}
+    return eng
+
+
+def recorded(eng) -> list:
+    """Keep a copy of what each of ``eng``'s step calls returns (a replay's
+    outputs are rewritten by the next replay): ``("admit", pad shape,
+    logits, first tokens)``, ``("block", block)``, ``("step", logits,
+    aux)``."""
+    log = []
+    admit, multi, single = eng._admit_step, eng._decode_multi, eng._decode
+
+    def a(m, c, tokens, *rest):
+        logits, greedy, c = admit(m, c, tokens, *rest)
+        log.append(("admit", tuple(tokens.shape), logits.clone(),
+                    greedy.clone()))
+        return logits, greedy, c
+
+    def b(*args):
+        block, act, c = multi(*args)
+        log.append(("block", block.clone()))
+        return block, act, c
+
+    def s(*args):
+        logits, aux, c = single(*args)
+        log.append(("step", logits.clone(), aux.clone()))
+        return logits, aux, c
+    eng._admit_step, eng._decode_multi, eng._decode = a, b, s
+    return log
+
+
+def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
+                   new_tokens: int = 9, **ec_kw) -> dict:
+    """A serve form (``ec_kw``) driven by two engines in lockstep: one
+    replaying its CUDA graphs, one running the same bodies eagerly. After
+    every engine step the whole cache (``pos``, every KV row or pool block
+    but the sink, the table) must be bitwise equal; at the end, every call's outputs
+    (each admission group's logits and first tokens, at every pad shape the
+    trace uses, and each decode block or step) and the tokens. With 8
+    slots, 16 requests and ``new_tokens = K + 1`` each request lives one
+    admission and one block."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.serving import Engine
+    engs = {mode: Engine(engine_config(**ec_kw), cfg=cfg, params=model,
+                         device=device) for mode in ("graph", "eager")}
+    eager_steps(engs["eager"])
+    check(isinstance(engs["graph"]._decode_multi, ST.GraphedStep),
+          "the engine on the card does not replay graphs")
+    logs = {m: recorded(e) for m, e in engs.items()}
+    reqs = {m: [e.submit(r["prompt"], max_new_tokens=new_tokens,
+                         arrival_time=0.0) for r in trace[:n_requests]]
+            for m, e in engs.items()}
+    steps = 0
+    while not engs["graph"].idle:
+        for e in engs.values():
+            e.step_block() if e.ec.decode_block > 1 else e.step()
+        torch.cuda.synchronize()
+        steps += 1
+        g, e = engs["graph"].cache, engs["eager"].cache
+        for name in g:
+            # a pool's last block is the write-only sink of sentinel
+            # writes (several rows may land on one sink row, in no fixed
+            # order): no table entry owns it and nothing reads it
+            own = slice(None, -1) if name in ("kp", "vp", "ks", "vs") \
+                else slice(None)
+            check(torch.equal(g[name][:, own], e[name][:, own])
+                  if g[name].dim() > 1 else torch.equal(g[name], e[name]),
+                  f"graph != eager: cache[{name!r}] after engine step {steps}"
+                  f" ({ec_kw})")
+    check(engs["eager"].idle, "graph != eager: the eager engine has work left")
+    check(len(logs["graph"]) == len(logs["eager"]),
+          "graph != eager: another number of step calls")
+    for gl, el in zip(logs["graph"], logs["eager"]):
+        check(gl[0] == el[0] and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(gl[1:], el[1:])),
+              f"graph != eager: the outputs of a {gl[0]} call ({ec_kw})")
+    tokens = {m: [list(r.out_tokens) for r in rs] for m, rs in reqs.items()}
+    check(tokens["graph"] == tokens["eager"], "graph != eager: tokens")
+    kinds = [entry[0] for entry in logs["graph"]]
+    return dict(bitwise=True, engine_steps=steps,
+                admission_groups=kinds.count("admit"),
+                decode_calls=len(kinds) - kinds.count("admit"),
+                pad_shapes=sorted({entry[1][1] for entry in logs["graph"]
+                                   if entry[0] == "admit"}),
+                cuda_graphs=graph_summary(engs["graph"].graph_stats()))
+
+
+def graph_timings(cfg, model, trace, device, pairs: int = 10,
+                  prompt_lens=(64, 128, 256), **ec_kw) -> dict:
+    """Eager against graph in ``pairs`` alternating pairs in one process
+    (``alternating_ms``): ms per decode block with 8 busy slots (the
+    engine's ``step_block``, copies and readback included), and ms per
+    admitted prompt of each length in ``prompt_lens`` (one admission call
+    and its readback). Each engine first admits, captures and runs two
+    blocks; both must have emitted the same tokens, and the timed
+    admissions the same logits."""
+    from repro_torch.serving import Engine
+    engs = {}
+    for mode in ("eager", "graph"):
+        eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model,
+                     device=device)
+        if mode == "eager":
+            eager_steps(eng)
+        reqs = [eng.submit(r["prompt"], max_new_tokens=8 * (pairs + 2) + 1,
+                           arrival_time=0.0) for r in trace[:8]]
+        eng.step_block()
+        eng.step_block()
+        engs[mode] = (eng, reqs)
+    block = alternating_ms({m: e.step_block for m, (e, _) in engs.items()},
+                           pairs)
+    check([r.out_tokens for r in engs["graph"][1]]
+          == [r.out_tokens for r in engs["eager"][1]],
+          "graph != eager: tokens in the timed blocks")
+    out = dict(pairs=pairs, decode_block=_with_spread(block), admission={})
+    gen = torch.Generator(device=device).manual_seed(7)
+    for n in prompt_lens:
+        toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                             device=device, dtype=torch.int32)
+        lens = torch.full((1,), n, dtype=torch.int32, device=device)
+        calls, logits = {}, {}
+        for mode, (eng, _) in engs.items():
+            extra = (torch.zeros((1,), dtype=torch.int32, device=device),) \
+                if eng._alloc is not None else ()
+
+            def call(eng=eng, extra=extra, mode=mode):
+                lg, first, _ = eng._admit_step(eng.params, eng.cache, toks,
+                                               lens, np.zeros((1,), np.int32),
+                                               *extra)
+                logits[mode] = lg.clone()
+                return first.cpu()
+            calls[mode] = call
+            call()                                      # capture
+        out["admission"][n] = _with_spread(alternating_ms(calls, pairs))
+        check(torch.equal(logits["graph"], logits["eager"]),
+              f"graph != eager: admission logits at {n} tokens")
+    out["cuda_graphs"] = graph_summary(engs["graph"][0].graph_stats())
+    return out
+
+
+def _with_spread(res: dict) -> dict:
+    """``alternating_ms``'s result with each mode's spread, (max - min) /
+    median of its readings."""
+    res["spread"] = {m: (max(v) - min(v)) / statistics.median(v)
+                     for m, v in res["ms"].items()}
+    return res
+
+
 def prefix_hit(cfg, model, device) -> dict:
     """ROADMAP C3 on a prefix hit, under the engine's dispatch (``cfg``;
     capacity dispatch would make the row count change which tokens are
@@ -2161,7 +2436,7 @@ def prefix_hit(cfg, model, device) -> dict:
     tab = torch.arange(2 * mb, **i32).reshape(2, mb)
     tab[1, :shared // KV_BLOCK] = tab[0, :shared // KV_BLOCK]
     cache["tab"][:2] = tab
-    admit = ST.make_slot_admit_paged(cfg)
+    admit = admission_step(cfg, model, cache, device, paged=True)
     whole, _, _ = admit(model, cache, prompt, torch.tensor([S], **i32),
                         np.array([0], np.int32), torch.zeros((1,), **i32))
 
@@ -2303,7 +2578,10 @@ def admission_alone_vs_group(gcfg, model, toks, lengths, device) -> bool:
 
 def fused_vs_stepwise(gcfg, model, fresh, tok, act, K: int = 4) -> bool:
     """K fused decode steps against the same K steps driven one at a time
-    through the engine's single step: the logits of every step, bitwise."""
+    through the engine's single step: the logits of every step, bitwise;
+    and the same on the engine's CUDA graphs (the fused block's graph
+    against K replays of the single step's): every step's token and the
+    cache after the K steps, bitwise."""
     from repro_torch.launch import steps as ST
     from repro_torch.models import model as MD
     B = tok.shape[0]
@@ -2336,18 +2614,52 @@ def fused_vs_stepwise(gcfg, model, fresh, tok, act, K: int = 4) -> bool:
     check(len(fused) == K and len(stepwise) == K, "contracts: step count")
     check(bool((block[:, :, 2] == 1).all()), "contracts: finite lane")
     check(fused_step, "contracts: fused K steps != K single steps on logits")
+    # on the graphs
+    device = tok.device
+    fused_cache, step_cache = fresh(), fresh()
+    consts = MD.slot_consts(gcfg, fused_cache)
+    g_block = decode_step(ST.make_slot_decode_multi(gcfg, K, 0.0, consts),
+                          model, fused_cache, device, (tok, act, rem, eos))(
+        model, fused_cache, tok, act, rem, eos)[0].clone()
+    g_step = decode_step(ST.make_slot_decode(gcfg, 0.0, consts), model,
+                         step_cache, device, (tok, act))
+    toks, t = [], tok
+    for _ in range(K):
+        t = g_step(model, step_cache, t, act)[1][:, 0].clone()
+        toks.append(t)
+    torch.cuda.synchronize()
+    check(torch.equal(g_block[:, :, 0], torch.stack(toks))
+          and torch.equal(g_block, block)
+          and all(torch.equal(fused_cache[n], step_cache[n])
+                  for n in fused_cache),
+          "contracts: on the graphs, the fused block != K single steps "
+          "(tokens or cache)")
     return fused_step
 
 
 def paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg, device) -> dict:
     """C3: the paged pool against the dense cache, admission and one decode
     step (``lg``: the dense cache's decode logits): one kernel over the same
-    rows in the same blocks, bitwise."""
+    rows in the same blocks, bitwise; the decode step also replayed from
+    the engine's CUDA graph over both layouts, bitwise each other and
+    ``lg``."""
+    from repro_torch.launch import steps as ST
     from repro_torch.models import model as MD
-    la_d, _ = admitted_cache(gcfg, model, toks, lengths, device)
+    la_d, dc = admitted_cache(gcfg, model, toks, lengths, device)
     la_p, pc = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
     lp, _ = MD.decode_step_slots(gcfg, model, pc, tok, act)
+
+    def graph_logits(cache):
+        step = ST.make_slot_decode(gcfg, 0.0, MD.slot_consts(gcfg, cache))
+        return decode_step(step, model, cache, device, (tok, act))(
+            model, cache, tok, act)[0].clone()
+    # the same step on the engine's graphs, from the same admitted caches
+    _, pc2 = admitted_cache(gcfg, model, toks, lengths, device, paged=True)
+    lg_graph, lp_graph = graph_logits(dc), graph_logits(pc2)
     torch.cuda.synchronize()
+    check(torch.equal(lp_graph, lg_graph) and torch.equal(lg_graph, lg),
+          "contracts: on the graphs, paged decode logits != dense, or the "
+          "graph's != the eager step's, bitwise")
     check(bool(torch.equal(la_p, la_d)),
           "contracts: paged admission logits != dense, bitwise")
     check(bool(torch.equal(lp, lg)),
@@ -2356,6 +2668,7 @@ def paged_vs_dense(gcfg, model, toks, lengths, tok, act, lg, device) -> dict:
     return dict(admission_logits_max_abs_gap=float((la_p - la_d).abs().max()),
                 decode_logits_max_abs_gap=float((lp - lg).abs().max()),
                 decode_logits_bitwise=bool(torch.equal(lp, lg)),
+                decode_logits_bitwise_on_graphs=True,
                 decode_argmax_equal_share=float(
                     (lp.argmax(-1) == lg.argmax(-1)).float().mean()))
 
@@ -2399,12 +2712,15 @@ def contracts(cfg, model, device, lens):
     cache4 = MD.init_slot_cache(gcfg, 4, 512, device)
     slots4 = np.arange(4, dtype=np.int32)
     admit_step = ST.make_slot_admit(gcfg)
+    admit_graph = admission_step(gcfg, model, cache4, device)
 
     def batched():
         _, k, v = MD.prefill_slots(gcfg, model, t4, l4)
         MD.insert_slots(cache4, slots4, k, v, l4)
 
     per_row_ms = host_ms(lambda: admit_step(model, cache4, t4, l4, slots4))
+    per_row_graph_ms = host_ms(
+        lambda: admit_graph(model, cache4, t4, l4, slots4))
     batched_ms = host_ms(batched)
     del cache4
     free()
@@ -2417,8 +2733,10 @@ def contracts(cfg, model, device, lens):
                 fused_vs_stepwise_logits_bitwise=fused_step,
                 prefill_alone_vs_in_batch_logits_bitwise=admit_invariant,
                 batched_prefill_alone_vs_in_batch_max_abs_gap=batched_gap,
-                admission_group_of_4x256_ms=dict(batch_invariant=per_row_ms,
-                                                 batched_prefill=batched_ms),
+                admission_group_of_4x256_ms=dict(
+                    batch_invariant=per_row_ms,
+                    batch_invariant_on_graphs=per_row_graph_ms,
+                    batched_prefill=batched_ms),
                 paged_vs_dense=paged,
                 prefix_hit_vs_whole_prompt=hit,
                 dense_decode_block_ms=decode_ab)
@@ -2872,6 +3190,12 @@ def add_routes(into, routes):
             into[name][r] += n
 
 
+def graph_check(cfg, model, trace, device, form: str, **kw) -> None:
+    """Emit one form's ``graph_vs_eager`` (which raises on any difference)."""
+    emit("graphs", model=cfg.name, form=form, layers=cfg.n_layers,
+         graph_equals_eager=graph_vs_eager(cfg, model, trace, device, **kw))
+
+
 def decode_lens(trace) -> torch.Tensor:
     """Valid rows of 8 busy slots half-way through their 32 new tokens."""
     return torch.tensor([len(r["prompt"]) + 16 for r in trace[:8]],
@@ -3003,8 +3327,19 @@ def main(argv=None) -> int:
                            if numerics.mm_out_dtype_available()
                            else "bf16 product widened to fp32"))
     if args.profile:
-        emit("profile", model=cfg.name, experts="bf16", card=card,
-             **profile_block(cfg, model, trace, device))
+        for eager in (False, True):
+            emit("profile", model=cfg.name, experts="bf16", card=card,
+                 **profile_block(cfg, model, trace, device, eager))
+    # graph == eager in every form of the bf16 tables (and the single step),
+    # then eager against graph in time
+    for form, kw in (("dense cache", {}), ("paged bf16 KV", PAGED),
+                     ("paged int8 KV", PAGED_INT8)):
+        graph_check(cfg, model, trace, device, form, **kw)
+    graph_check(cfg, model, trace, device, "dense cache, decode_block=1",
+                n_requests=4, new_tokens=4, decode_block=1)
+    emit("graph_timings", model=cfg.name, experts="bf16", kv="dense",
+         layers=cfg.n_layers, card=card,
+         **graph_timings(cfg, model, trace, device))
     pred = {"dense": teacher_forced(cfg, model, trace, dense["tokens"], device)}
     for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
                          ("paged int8 KV", PAGED_INT8, "int8")):
@@ -3034,12 +3369,20 @@ def main(argv=None) -> int:
     serve(cfg, model, trace[:2], device)
     res = serve(cfg, model, trace, device)
     if args.profile:
-        emit("profile", model=cfg.name, experts="int8", card=card,
-             **profile_block(cfg, model, trace, device))
+        for eager in (False, True):
+            emit("profile", model=cfg.name, experts="int8", card=card,
+                 **profile_block(cfg, model, trace, device, eager))
         with int8_moe_route("cuda_core"):
-            emit("profile", model=cfg.name, experts="int8",
-                 int8_moe_route="cuda_core (the route before tensor_core)",
-                 card=card, **profile_block(cfg, model, trace, device))
+            for eager in (False, True):
+                emit("profile", model=cfg.name, experts="int8",
+                     int8_moe_route="cuda_core (the route before "
+                                    "tensor_core)",
+                     card=card, **profile_block(cfg, model, trace, device,
+                                                eager))
+    graph_check(cfg, model, trace, device, "int8 experts")
+    emit("graph_timings", model=cfg.name, experts="int8", kv="dense",
+         layers=cfg.n_layers, card=card,
+         **graph_timings(cfg, model, trace, device))
     pred["int8 experts"] = teacher_forced(cfg, model, trace, dense["tokens"],
                                           device)
     record(res, "int8 experts, uncompressed", cfg, weights_gb(model),
@@ -3060,11 +3403,13 @@ def main(argv=None) -> int:
     serve(mcfg, model, trace[:2], device)
     merged = serve(mcfg, model, trace, device)
     record(merged, form, mcfg, weights_gb(model), init_s=build_s)
+    graph_check(mcfg, model, trace, device, form)
     q_s = quantize(model)
     serve(mcfg, model, trace[:2], device)
     res = serve(mcfg, model, trace, device)
     merged_top1 = top1(teacher_forced(mcfg, model, trace, merged["tokens"],
                                       device), merged["tokens"])
+    graph_check(mcfg, model, trace, device, form + ", int8 experts")
     record(res, form + ", int8 experts", mcfg, weights_gb(model),
            experts="int8", quantize_s=q_s,
            free_running_agreement_with_bf16_merged=top1(res["tokens"],
@@ -3098,10 +3443,21 @@ def main(argv=None) -> int:
     record(d_dense, "dense cache", dense_cfg, d_gb, family="dense",
            init_s=build_s)
     if args.profile:
-        emit("profile", model=dense_cfg.name, card=card,
-             **profile_block(dense_cfg, model, dtrace, device))
-        emit("profile", model=dense_cfg.name, kv="paged int8", card=card,
-             **profile_block(dense_cfg, model, dtrace, device, **PAGED_INT8))
+        for eager in (False, True):
+            emit("profile", model=dense_cfg.name, card=card,
+                 **profile_block(dense_cfg, model, dtrace, device, eager))
+            emit("profile", model=dense_cfg.name, kv="paged int8", card=card,
+                 **profile_block(dense_cfg, model, dtrace, device, eager,
+                                 **PAGED_INT8))
+    for form, kw in (("dense cache", {}), ("paged bf16 KV", PAGED),
+                     ("paged int8 KV", PAGED_INT8),
+                     (f"dense cache, temperature {TEMPERATURE}",
+                      dict(temperature=TEMPERATURE))):
+        graph_check(dense_cfg, model, dtrace, device, form, **kw)
+    for kv, kw in (("dense", {}), ("paged int8", PAGED_INT8)):
+        emit("graph_timings", model=dense_cfg.name, kv=kv,
+             layers=dense_cfg.n_layers, card=card,
+             **graph_timings(dense_cfg, model, dtrace, device, **kw))
     for form, kw, kv in (("paged bf16 KV", PAGED, "bf16"),
                          ("paged int8 KV", PAGED_INT8, "int8")):
         res = serve(dense_cfg, model, dtrace, device, **kw)

@@ -24,6 +24,7 @@ the same on every device, the Gumbel noise up to the device's ``log``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -88,9 +89,17 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     bits = random_bits(key, n)
     one = (bits >> 9) | 0x3F800000                 # a float in [1, 2)
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo, hi = bound(minval, key.device), bound(maxval, key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+@functools.lru_cache(maxsize=None)
+def bound(value: float, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-d fp32 tensor on ``device``, built once per (value,
+    device) and never written: a copy from host memory, which a CUDA
+    graph's capture refuses, happens at the first call only (a step's
+    warm-up, before its capture)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -33,6 +33,20 @@ class Kernel:
         self.ROUTE_LAUNCHES[route] += 1
         self.LAUNCHES += 1
 
+    def credit(self, by_route: Dict[str, int]) -> None:
+        """The launches of one replay of a CUDA graph, by route: the
+        wrappers ran (and counted) only while the graph was captured, so a
+        replay adds the launches that capture recorded."""
+        for route, n in by_route.items():
+            self.ROUTE_LAUNCHES[route] += n
+            self.LAUNCHES += n
+
+    def restore(self, by_route: Dict[str, int]) -> None:
+        """Set the counts back to ``by_route`` (a ``dict(ROUTE_LAUNCHES)``
+        read earlier)."""
+        self.ROUTE_LAUNCHES = dict(by_route)
+        self.LAUNCHES = sum(by_route.values())
+
     def reset(self) -> None:
         self.LAUNCHES = 0
         self.ROUTE_LAUNCHES = dict.fromkeys(self.ROUTE_LAUNCHES, 0)

@@ -99,3 +99,23 @@ def route_launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.reset()
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    """Launches by kernel and route between two :func:`route_launch_counts`
+    readings."""
+    return {name: {r: n - before[name][r] for r, n in by_route.items()}
+            for name, by_route in after.items()}
+
+
+def credit_launches(delta: dict) -> None:
+    """Add a :func:`launch_delta` to the counts: what one replay of a CUDA
+    graph launched (``launch.steps.StepGraph``)."""
+    for name, by_route in delta.items():
+        KERNELS[name].credit(by_route)
+
+
+def restore_launch_counts(counts: dict) -> None:
+    """Set every count back to a :func:`route_launch_counts` reading."""
+    for name, by_route in counts.items():
+        KERNELS[name].restore(by_route)

@@ -1,18 +1,29 @@
-"""Step functions of the continuous-batching engine.
+"""Step functions of the continuous-batching engine, and the CUDA graphs that
+replay them.
 
 Each ``make_*`` closes over the ModelConfig and returns the callable the
-engine invokes. The reference jits these; here they run eagerly under
-``torch.inference_mode()`` and update the KV cache in place. The fault-
-injection ``poison`` argument of the reference's decode steps is not ported
-(fault plans belong to the resilience slice).
+engine invokes: the step's BODY, which runs eagerly under
+``torch.inference_mode()`` and updates the KV cache in place. The reference
+jits these. The port's counterpart of one jitted call is one replay of a CUDA
+graph captured over the body (:class:`StepGraph`): on the card the engine
+replays each decode block (:class:`GraphedStep` over
+:func:`make_slot_decode_multi`, or :func:`make_slot_decode` for the
+step-at-a-time loop) and each admitted prompt (:class:`GraphedAdmit`, one
+graph per pad shape at batch 1), so the device, not Python, drives serving.
+On the CPU, and in ``chip_smoke.py``'s comparisons on the card, the bodies
+run eagerly. The kernels inside a graph are the same hand-written ones. The
+fault-injection ``poison`` argument of the reference's decode steps is not
+ported (fault plans belong to the resilience slice).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core import threefry as TF
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
 
@@ -65,7 +76,12 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
                         dim=-1).to(torch.int32)
 
 
-def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
+def _consts(cfg: ModelConfig, cache, consts: Optional[MD.SlotConsts]):
+    return MD.slot_consts(cfg, cache) if consts is None else consts
+
+
+def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0,
+                     consts: Optional[MD.SlotConsts] = None) -> Callable:
     """slot_decode(model, cache, token [B], active [B], keys [B, 2] = None)
     -> (logits [B, V], aux [B, 2] int32, cache) with ``aux[b] = (token,
     finite)``: the sampled token (:func:`sample_tokens` at
@@ -74,10 +90,12 @@ def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
     numeric-health flag (all logits finite) packed into one tensor, so the
     engine reads back once per step at any temperature. The reference's step
     returns the greedy argmax here and samples at T > 0 from the logits on
-    the host."""
+    the host. ``consts``: the cache's ``model.slot_consts``, built once by
+    the engine (default: built at every call)."""
     @torch.inference_mode()
     def slot_decode(model, cache, token, active, keys=None):
-        logits, cache = MD.decode_step_slots(cfg, model, cache, token, active)
+        logits, cache = MD.decode_step_slots(cfg, model, cache, token, active,
+                                             _consts(cfg, cache, consts))
         tok = sample_tokens(logits, temperature, keys, cache["pos"])
         finite = torch.isfinite(logits).all(dim=-1).to(torch.int32)
         return logits, torch.stack([tok, finite], dim=-1), cache
@@ -85,19 +103,49 @@ def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0) -> Callable:
 
 
 def _admit_rows_one_by_one(admit_one: Callable, cache, slots):
-    """Run ``admit_one(i)`` -> logits ``[1, V]`` for every row i of an
-    admission group and stack the results: (logits ``[B, V]``, greedy
-    ``[B]``). Every slot must be real (``0 <= slots[i] < n_slots``): the
-    engine never pads a group."""
+    """Run ``admit_one(i, slots_d)`` -> logits ``[1, V]`` for every row i of
+    an admission group (``slots_d``: the group's slots as a long tensor on
+    the cache's device, one copy for the group) and stack the results:
+    (logits ``[B, V]``, greedy ``[B]``). Every slot must be real (``0 <=
+    slots[i] < n_slots``): the engine never pads a group."""
     n_slots = cache["pos"].shape[0]
-    slots = torch.as_tensor(slots).tolist()
-    if not all(0 <= s < n_slots for s in slots):
-        raise ValueError(f"admission slots {slots} outside [0, {n_slots})")
-    logits = torch.cat([admit_one(i) for i in range(len(slots))], dim=0)
+    slots_h = torch.as_tensor(slots).tolist()
+    if not all(0 <= s < n_slots for s in slots_h):
+        raise ValueError(f"admission slots {slots_h} outside [0, {n_slots})")
+    slots_d = torch.as_tensor(slots_h, dtype=torch.long).to(
+        cache["pos"].device)
+    logits = torch.cat([admit_one(i, slots_d) for i in range(len(slots_h))],
+                       dim=0)
     return logits, torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_slot_admit(cfg: ModelConfig) -> Callable:
+def admit_row(cfg: ModelConfig, consts: MD.SlotConsts) -> Callable:
+    """The body that admits ONE prompt into the dense cache, the one an
+    admission graph captures: row(model, cache, tokens [1, S_bucket],
+    lengths [1], slot [1]) -> logits [1, V], with ``slot`` a long tensor on
+    the cache's device (prefill at batch 1, then ``model.insert_slot``)."""
+    def row(model, cache, tokens, lengths, slot):
+        logits, k_new, v_new = MD.prefill_slots(cfg, model, tokens, lengths,
+                                                inv_freq=consts.inv_freq)
+        MD.insert_slot(cache, slot, k_new, v_new, lengths)
+        return logits
+    return row
+
+
+def admit_row_paged(cfg: ModelConfig, consts: MD.SlotConsts) -> Callable:
+    """:func:`admit_row` for the paged pool: row(model, cache, tokens [1,
+    S_bucket], lengths [1], slot [1], pos0 [1]) -> logits [1, V]
+    (``model.admit_slots_paged``; the slot's table row is read from
+    ``cache["tab"]`` on the device)."""
+    def row(model, cache, tokens, lengths, slot, pos0):
+        logits, _ = MD.admit_slots_paged(cfg, model, cache, tokens, lengths,
+                                         slot, pos0, inv_freq=consts.inv_freq)
+        return logits
+    return row
+
+
+def make_slot_admit(cfg: ModelConfig,
+                    consts: Optional[MD.SlotConsts] = None) -> Callable:
     """Admission: prefill + slot insert + first-token argmax.
 
     slot_admit(model, cache, tokens [B, S_bucket], lengths [B], slots [B])
@@ -105,48 +153,50 @@ def make_slot_admit(cfg: ModelConfig) -> Callable:
     of B distinct real slots.
 
     Each real row is prefilled ALONE, at batch 1 and its bucket length, and
-    inserted. So a prompt's admission arithmetic does not depend on which
-    other requests share its group: the library's matrix products pick their
-    algorithm by the number of rows, and a batched prefill gave the same
-    prompt other logits alone than in a group of four on the card. The group
-    stays one step call with one readback of ``greedy``."""
+    inserted (:func:`admit_row`). So a prompt's admission arithmetic does
+    not depend on which other requests share its group: the library's
+    matrix products pick their algorithm by the number of rows, and a
+    batched prefill gave the same prompt other logits alone than in a group
+    of four on the card. The group stays one step call with one readback of
+    ``greedy``."""
     @torch.inference_mode()
     def slot_admit(model, cache, tokens, lengths, slots):
-        def one(i):
-            logits, k_new, v_new = MD.prefill_slots(
-                cfg, model, tokens[i:i + 1], lengths[i:i + 1])
-            MD.insert_slots(cache, slots[i:i + 1], k_new, v_new,
-                            lengths[i:i + 1])
-            return logits
+        row = admit_row(cfg, _consts(cfg, cache, consts))
+
+        def one(i, slots_d):
+            return row(model, cache, tokens[i:i + 1], lengths[i:i + 1],
+                       slots_d[i:i + 1])
         logits, greedy = _admit_rows_one_by_one(one, cache, slots)
         return logits, greedy, cache
     return slot_admit
 
 
-def make_slot_admit_paged(cfg: ModelConfig) -> Callable:
+def make_slot_admit_paged(cfg: ModelConfig,
+                          consts: Optional[MD.SlotConsts] = None) -> Callable:
     """Admission into the PAGED pool.
 
     slot_admit_paged(model, cache, tokens [B, S_bucket], lengths [B],
     slots [B], pos0 [B]) -> (logits [B, V], greedy [B] int32, cache).
     ``tokens`` holds each request's SUFFIX (prompt minus its shared-prefix
     rows) and ``pos0`` the shared rows. Each row runs
-    :func:`repro_torch.models.model.admit_slots_paged` alone, at batch 1, as
-    in :func:`make_slot_admit`."""
+    :func:`admit_row_paged` alone, at batch 1, as in
+    :func:`make_slot_admit`."""
     @torch.inference_mode()
     def slot_admit_paged(model, cache, tokens, lengths, slots, pos0):
-        def one(i):
-            logits, _ = MD.admit_slots_paged(
-                cfg, model, cache, tokens[i:i + 1], lengths[i:i + 1],
-                slots[i:i + 1], pos0[i:i + 1])
-            return logits
+        row = admit_row_paged(cfg, _consts(cfg, cache, consts))
+
+        def one(i, slots_d):
+            return row(model, cache, tokens[i:i + 1], lengths[i:i + 1],
+                       slots_d[i:i + 1], pos0[i:i + 1])
         logits, greedy = _admit_rows_one_by_one(one, cache, slots)
         return logits, greedy, cache
     return slot_admit_paged
 
 
 def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
-                           temperature: float = 0.0) -> Callable:
-    """Fused K-step decode: K eager steps with NO host read between them.
+                           temperature: float = 0.0,
+                           consts: Optional[MD.SlotConsts] = None) -> Callable:
+    """Fused K-step decode: K steps with NO host read between them.
 
     slot_decode_multi(model, cache, token [B], active [B], remaining [B],
     eos [B], keys [B, 2] = None) -> (block [K, B, 3] int32, active [B] bool,
@@ -161,18 +211,21 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
     slot whose sampled token hits its ``eos`` entry (-1 = none) or exhausts
     ``remaining`` stops advancing ``pos`` and stops emitting, but rides along
     in the batch. The reference skips the forward for the tail of a block in
-    which every slot is frozen; deciding that needs a host read, so here the
-    K steps always run. Frozen slots emit nothing, so the tokens are the
+    which every slot is frozen (its ``lax.cond``); deciding that needs a host
+    read, and a replayed CUDA graph runs what it captured, so here the K
+    steps always run. Frozen slots emit nothing, so the tokens are the
     same."""
     @torch.inference_mode()
     def slot_decode_multi(model, cache, token, active, remaining, eos,
                           keys=None):
+        c = _consts(cfg, cache, consts)
         B = token.shape[0]
         block = torch.empty((k_steps, B, 3), dtype=torch.int32,
                             device=token.device)
         tok, act, rem = token.to(torch.int32), active, remaining
         for s in range(k_steps):
-            logits, cache = MD.decode_step_slots(cfg, model, cache, tok, act)
+            logits, cache = MD.decode_step_slots(cfg, model, cache, tok, act,
+                                                 c)
             finite = torch.isfinite(logits).all(dim=-1)
             # frozen rows sample garbage that is never emitted
             nxt = sample_tokens(logits, temperature, keys, cache["pos"])
@@ -186,3 +239,187 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
             block[s, :, 2] = finite.to(torch.int32)
         return block, act, cache
     return slot_decode_multi
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _clone_cache(cache):
+    return {name: t.clone() for name, t in cache.items()}
+
+
+class CudaGraph:
+    """``torch.cuda.CUDAGraph`` behind the calls :class:`StepGraph` makes.
+    ``pool``: the memory pool the capture allocates from (graphs that never
+    run at once may share one); ``stream``: the side stream of the warm-up
+    and the capture. ``reserved_bytes``: what the capture added to
+    ``torch.cuda.memory_reserved`` (the pool's new segments)."""
+
+    def __init__(self, pool, stream: torch.cuda.Stream):
+        self._graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self._pool, self._stream = pool, stream
+        self.reserved_bytes = 0
+
+    def warm_up(self, body: Callable, cache, inputs) -> None:
+        """Run ``body`` once on a scratch copy of ``cache`` on the side
+        stream: libraries built and loaded, library handles and workspaces
+        made, lazily built constants in place, the live cache untouched."""
+        scratch = _clone_cache(cache)
+        here = torch.cuda.current_stream()
+        self._stream.wait_stream(here)
+        with torch.cuda.stream(self._stream):
+            body(scratch, *inputs)
+        here.wait_stream(self._stream)
+        torch.cuda.synchronize()
+
+    def capture(self, body: Callable, cache, inputs):
+        """Record ``body`` on the live cache; nothing runs."""
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        with torch.cuda.graph(self._graph, pool=self._pool,
+                              stream=self._stream):
+            out = body(cache, *inputs)
+        self.reserved_bytes = torch.cuda.memory_reserved() - before
+        return out
+
+    def instantiate(self) -> None:
+        self._graph.instantiate()
+        torch.cuda.synchronize()
+
+    def replay(self) -> None:
+        self._graph.replay()
+
+
+class StepGraph:
+    """One step body replayed from a graph (``graph``: a :class:`CudaGraph`,
+    or a stand-in with the same four calls and ``reserved_bytes``), the
+    port's counterpart of one call of the reference's jitted step.
+
+    Built in four moves: ``graph.warm_up`` (on a scratch copy of the cache),
+    ``graph.capture`` of ``body(cache, *inputs)`` against the static input
+    buffers ``inputs`` and the live cache, ``graph.instantiate``, and the
+    launch credit: a kernel wrapper counts its launch (``_common.Kernel``)
+    only while the graph is captured, so the capture's count delta, by
+    kernel and route, is credited at every :meth:`replay` and
+    ``ops.launch_counts()`` reads what an eager run reads. The warm-up's
+    and the capture's own counts are taken back. The outputs are the
+    capture's tensors, rewritten by every replay (read them before the next
+    replay of a graph that shares the pool)."""
+
+    def __init__(self, body: Callable, cache, inputs: Sequence[torch.Tensor],
+                 graph):
+        self.inputs = tuple(inputs)
+        self._graph = graph
+        counts = kops.route_launch_counts()
+        t0 = time.perf_counter()
+        graph.warm_up(body, cache, self.inputs)
+        warm = kops.route_launch_counts()
+        t1 = time.perf_counter()
+        self.outputs = graph.capture(body, cache, self.inputs)
+        t2 = time.perf_counter()
+        graph.instantiate()
+        self.warm_up_s, self.capture_s = t1 - t0, t2 - t1
+        self.instantiate_s = time.perf_counter() - t2
+        self.credit = kops.launch_delta(kops.route_launch_counts(), warm)
+        kops.restore_launch_counts(counts)
+        self.replays = 0
+
+    def replay(self):
+        self._graph.replay()
+        kops.credit_launches(self.credit)
+        self.replays += 1
+        return self.outputs
+
+    def stats(self) -> dict:
+        return dict(warm_up_s=self.warm_up_s, capture_s=self.capture_s,
+                    instantiate_s=self.instantiate_s, replays=self.replays,
+                    reserved_bytes=self._graph.reserved_bytes,
+                    launches=sum(n for by_route in self.credit.values()
+                                 for n in by_route.values()))
+
+
+def _load(buffers: Sequence[torch.Tensor], values) -> None:
+    """Copy each value into its static buffer (skipped where the caller
+    handed the buffer itself)."""
+    if len(values) != len(buffers):
+        raise ValueError(f"{len(values)} inputs for {len(buffers)} buffers")
+    for buf, v in zip(buffers, values):
+        if v is not buf:
+            buf.copy_(v)
+
+
+class GraphedStep:
+    """A decode step (``make_slot_decode`` or ``make_slot_decode_multi``,
+    the same call signature) replayed from one :class:`StepGraph`, for one
+    model and one cache, whose tensors' addresses the graph holds.
+
+    ``inputs``: the static buffers, one for each tensor argument after the
+    cache (the engine fills them in place and hands them over, so no copy
+    is made; other tensors are copied in). Captured at the first call, with
+    that call's values in the buffers; a call with another model or cache
+    raises. Returns the step's outputs, the graph's tensors."""
+
+    def __init__(self, step: Callable, model, cache,
+                 inputs: Sequence[torch.Tensor], new_graph: Callable):
+        self._step, self._model, self._cache = step, model, cache
+        self._inputs = tuple(inputs)
+        self._new_graph = new_graph
+        self.graphs: Dict[str, StepGraph] = {}
+
+    def __call__(self, model, cache, *args):
+        if model is not self._model or cache is not self._cache:
+            raise ValueError("a graphed step replays against the model and "
+                             "cache it was built for")
+        _load(self._inputs, args)
+        g = self.graphs.get("step")
+        if g is None:
+            step, m = self._step, self._model
+            g = self.graphs["step"] = StepGraph(
+                lambda c, *a: step(m, c, *a), cache, self._inputs,
+                self._new_graph())
+        return g.replay()
+
+
+class GraphedAdmit:
+    """``make_slot_admit`` / ``make_slot_admit_paged`` (the same call
+    signature) for one model and one cache: every row of a group replays the
+    graph of its pad shape, which holds :func:`admit_row` (or
+    :func:`admit_row_paged`) at batch 1 and is captured at the shape's first
+    use; the group's logits are stacked and its greedy tokens taken once, as
+    the eager builders do. ``row``: that body. The logits returned are
+    copies; the first tokens come from one argmax over the group."""
+
+    def __init__(self, row: Callable, model, cache, new_graph: Callable):
+        self._row, self._model, self._cache = row, model, cache
+        self._new_graph = new_graph
+        self.graphs: Dict[str, StepGraph] = {}
+
+    def _graph(self, tokens, args) -> StepGraph:
+        key = f"admit {tokens.shape[1]}"
+        g = self.graphs.get(key)
+        if g is None:
+            row, m = self._row, self._model
+            dev = self._cache["pos"].device
+            inputs = [tokens[:1].clone(), args[0][:1].clone(),
+                      torch.zeros((1,), dtype=torch.long, device=dev)]
+            inputs += [a[:1].clone() for a in args[2:]]
+            g = self.graphs[key] = StepGraph(
+                lambda c, *a: row(m, c, *a), self._cache, inputs,
+                self._new_graph())
+        return g
+
+    @torch.inference_mode()
+    def __call__(self, model, cache, tokens, lengths, slots, *pos0):
+        if model is not self._model or cache is not self._cache:
+            raise ValueError("a graphed admission replays against the model "
+                             "and cache it was built for")
+
+        def one(i, slots_d):
+            g = self._graph(tokens, (lengths, slots_d) + pos0)
+            _load(g.inputs, (tokens[i:i + 1], lengths[i:i + 1],
+                             slots_d[i:i + 1]) + tuple(p[i:i + 1]
+                                                       for p in pos0))
+            return g.replay().clone()
+        logits, greedy = _admit_rows_one_by_one(one, cache, slots)
+        return logits, greedy, cache

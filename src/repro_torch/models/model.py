@@ -5,8 +5,10 @@ continuous batching (dense / moe families).
   forward(cfg, model, batch, capture)                  -> (logits, aux, captures)
   loss(cfg, model, batch)                              -> (scalar, metrics)
   init_slot_cache(cfg, n_slots, s_max, device)         -> cache dict
+  slot_consts(cfg, cache)                              -> SlotConsts
   prefill_slots(cfg, model, tokens, lengths)           -> (logits, k, v)
   insert_slots(cache, slots, k_new, v_new, lengths)    -> cache (in place)
+  insert_slot(cache, slot, k_new, v_new, lengths)      -> cache (in place)
   init_paged_cache(cfg, n_slots, s_max, device, ...)   -> paged cache dict
   admit_slots_paged(cfg, model, cache, tokens, lengths, slots, pos0)
                                                        -> (logits, cache)
@@ -16,12 +18,16 @@ continuous batching (dense / moe families).
 pool.
 
 The KV cache is updated IN PLACE (the reference returns new arrays): the
-dict handed in is the dict handed back. All forwards run under
-``torch.inference_mode()``.
+dict handed in is the dict handed back, and every tensor in it keeps its
+storage from step to step (``pos`` too is written in place), so a CUDA graph
+captured over a step replays against the same cache. Given its
+``SlotConsts`` (``inv_freq=`` / ``consts=``) and a device slot index, a
+step reads no tensor on the host and builds no tensor from host data. All
+forwards run under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -88,6 +94,26 @@ def init(cfg: ModelConfig, device, seed: int = 0) -> Model:
 
 def _inv_freq(cfg: ModelConfig, device):
     return L.rope_freqs(cfg.hd, cfg.rope_theta, device=device)
+
+
+class SlotConsts(NamedTuple):
+    """What a slot step reads besides the model, the cache and its inputs,
+    built once per cache (per engine) by :func:`slot_consts`: the RoPE
+    inverse frequencies on the cache's device (``layers.rope_freqs`` builds
+    them from a host scalar) and the dense cache's capacity and block size
+    as host ints (None for the paged pool, whose table carries both)."""
+    inv_freq: torch.Tensor
+    s_max: Optional[int]
+    kv_block: Optional[int]
+
+
+def slot_consts(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> SlotConsts:
+    """The :class:`SlotConsts` of ``cache`` (dense or paged), the same ops
+    as a step that builds them itself, so the bits are the same."""
+    inv_freq = _inv_freq(cfg, cache["pos"].device)
+    if "kp" in cache:
+        return SlotConsts(inv_freq, None, None)
+    return SlotConsts(inv_freq, int(cache["s_max"]), int(cache["kv_block"]))
 
 
 @torch.inference_mode()
@@ -224,21 +250,26 @@ def _paged_forward(cfg: ModelConfig, model: Model,
 @torch.inference_mode()
 def admit_slots_paged(cfg: ModelConfig, model: Model,
                       cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                      lengths: torch.Tensor, slots, pos0: torch.Tensor):
+                      lengths: torch.Tensor, slots, pos0: torch.Tensor,
+                      inv_freq: Optional[torch.Tensor] = None):
     """Admit right-padded prompt SUFFIXES into the paged cache, IN PLACE.
 
     tokens: ``[B, S_bucket]`` (each prompt minus the shared-prefix rows it
     adopted); lengths: ``[B]`` true suffix lengths (>= 1); slots: ``[B]``
-    distinct real target slots, a host array (the engine never pads an
-    admission group, unlike the reference); pos0: ``[B]`` shared-prefix row
-    counts. A verify-shaped forward at absolute positions ``pos0[b] +
+    distinct real target slots, a host array or an integer tensor on the
+    cache's device (the graph-safe form: no copy from host memory; the
+    engine never pads an admission group, unlike the reference); pos0:
+    ``[B]`` shared-prefix row counts; ``inv_freq``: the cache's
+    ``SlotConsts.inv_freq`` (default: built here). A verify-shaped forward
+    at absolute positions ``pos0[b] +
     arange(S_bucket)``: the suffix attends the adopted prefix rows through
     the slot's table, so with ``pos0 = 0`` it is the dense admission over a
     paged layout. ``pos`` is set to ``pos0 + lengths``. Returns (logits
     ``[B, V]`` fp32 at each row's last real suffix position, cache)."""
     dev = tokens.device
     slots_d = torch.as_tensor(slots).to(dev, torch.long)
-    inv_freq = _inv_freq(cfg, dev)
+    if inv_freq is None:
+        inv_freq = _inv_freq(cfg, dev)
     x = L.embed_apply(model.embed, tokens)
     pos0 = pos0.to(dev, torch.int32)
     x = _paged_forward(cfg, model, cache, x, T.stack_verify_paged,
@@ -253,16 +284,19 @@ def admit_slots_paged(cfg: ModelConfig, model: Model,
 
 @torch.inference_mode()
 def prefill_slots(cfg: ModelConfig, model: Model, tokens: torch.Tensor,
-                  lengths: torch.Tensor):
+                  lengths: torch.Tensor,
+                  inv_freq: Optional[torch.Tensor] = None):
     """Prefill right-padded prompts for slot insertion.
 
     tokens: [B, S_bucket] integer prompts padded to a shared bucket length;
-    lengths: [B] true prompt lengths. Returns (logits [B, V] fp32 at each
+    lengths: [B] true prompt lengths; ``inv_freq``: ``SlotConsts.inv_freq``
+    (default: built here). Returns (logits [B, V] fp32 at each
     row's LAST REAL position, k [L, B, S_bucket, nkv, hd], v). Padding rows
     beyond ``lengths[b]`` produce garbage KV, which is harmless: causality
     keeps them out of every real position's context, and the decode mask
     hides them until they are overwritten in place."""
-    inv_freq = _inv_freq(cfg, tokens.device)
+    if inv_freq is None:
+        inv_freq = _inv_freq(cfg, tokens.device)
     x = L.embed_apply(model.embed, tokens)
     ks_l, vs_l = [], []
     for blocks in model.stacks():
@@ -297,37 +331,54 @@ def insert_slots(cache: Dict[str, torch.Tensor], slots, k_new: torch.Tensor,
     if rows_h.numel() == 0:
         return cache
     rows = rows_h.to(dev)
-    dst = slots_h[rows_h].to(dev)
+    return insert_slot(cache, slots_h[rows_h].to(dev),
+                       k_new.index_select(1, rows), v_new.index_select(1, rows),
+                       lengths.to(dev).index_select(0, rows))
+
+
+@torch.inference_mode()
+def insert_slot(cache: Dict[str, torch.Tensor], slot: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor,
+                lengths: torch.Tensor):
+    """:func:`insert_slots` of real rows only, IN PLACE: ``slot`` ``[B]``
+    distinct slot ids in ``[0, n_slots)`` as an integer tensor on the cache's
+    device, read nowhere on the host (the form a CUDA graph captures: the
+    admission graph's slot is a one-element input). k_new/v_new ``[L, B,
+    S_bucket, nkv, hd]``; lengths ``[B]``."""
+    dst = slot.to(torch.long)
     Sb = k_new.shape[2]
-    cache["k"][:, dst, :Sb] = k_new.index_select(1, rows).to(cache["k"].dtype)
-    cache["v"][:, dst, :Sb] = v_new.index_select(1, rows).to(cache["v"].dtype)
-    cache["pos"][dst] = lengths.to(dev).index_select(0, rows).to(
-        cache["pos"].dtype)
+    cache["k"][:, dst, :Sb] = k_new.to(cache["k"].dtype)
+    cache["v"][:, dst, :Sb] = v_new.to(cache["v"].dtype)
+    cache["pos"][dst] = lengths.to(cache["pos"].dtype)
     return cache
 
 
 @torch.inference_mode()
 def decode_step_slots(cfg: ModelConfig, model: Model,
                       cache: Dict[str, torch.Tensor], token: torch.Tensor,
-                      active: torch.Tensor):
+                      active: torch.Tensor,
+                      consts: Optional[SlotConsts] = None):
     """One decode step across all serving slots; the cache is updated IN
-    PLACE.
+    PLACE (``pos`` included, written into the same tensor).
 
     token: [B] integer (last sampled token per slot, anything for idle
-    slots); active: [B] bool. Idle slots compute alongside but their ``pos``
-    does not advance, so they never corrupt state another request will read.
-    Returns (logits [B, V] fp32, cache)."""
-    inv_freq = _inv_freq(cfg, token.device)
+    slots); active: [B] bool; ``consts``: the cache's :func:`slot_consts`
+    (default: built here, which reads the dense cache's host scalars). Idle
+    slots compute alongside but their ``pos`` does not advance, so they never
+    corrupt state another request will read. Returns (logits [B, V] fp32,
+    cache)."""
+    consts = slot_consts(cfg, cache) if consts is None else consts
+    inv_freq = consts.inv_freq
     x = L.embed_apply(model.embed, token[:, None])
     pos = cache["pos"]
     if "kp" in cache:                                  # the paged pool
         x = _paged_forward(cfg, model, cache, x, T.stack_decode_paged,
                            cache["tab"][:pos.shape[0]], pos, inv_freq)
-        cache["pos"] = torch.where(active, pos + 1, pos)
+        pos.copy_(torch.where(active, pos + 1, pos))
         x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
         return L.lm_head(cfg, model.embed, x)[:, 0], cache
-    view = L.decode_view(pos, cache["k"].shape[2], int(cache["s_max"]),
-                         int(cache["kv_block"]))     # one for every layer
+    view = L.decode_view(pos, cache["k"].shape[2], consts.s_max,
+                         consts.kv_block)              # one for every layer
     lo = 0
     for blocks in model.stacks():
         hi = lo + len(blocks)
@@ -335,7 +386,7 @@ def decode_step_slots(cfg: ModelConfig, model: Model,
                                        cache["v"][lo:hi], pos,
                                        inv_freq=inv_freq, view=view)
         lo = hi
-    cache["pos"] = torch.where(active, pos + 1, pos)
+    pos.copy_(torch.where(active, pos + 1, pos))
     x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
     logits = L.lm_head(cfg, model.embed, x)[:, 0]
     return logits, cache

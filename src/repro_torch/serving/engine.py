@@ -31,6 +31,20 @@
   parity reference). With ``dispatch='gather'`` the decode-sized MoE layers go
   through the per-token gather kernel. Int8 expert tables (a model quantized
   with ``core.quant.quantize_model_experts``) go through the ``_q`` kernels.
+* **CUDA graphs.** On the card the engine replays each decode block (or
+  single step) and each admitted prompt from a CUDA graph
+  (``steps.GraphedStep`` / ``steps.GraphedAdmit``), the counterpart of the
+  reference's jitted step calls: the block's inputs (token, active,
+  remaining, eos, keys) are copied into static buffers the engine owns
+  (``_in``), the graph replays against them and the engine's cache, whose
+  tensors keep their storage for the engine's life, and the readback
+  follows. A graph is captured at its first use, after a warm-up on a
+  scratch copy of the cache, so the live cache is never written outside a
+  replay; admission has one graph per pad shape at batch 1 (each row of a
+  group replays it). The kernels' launch counts are credited per replay
+  with what the capture recorded. A failed capture raises. The graphs are
+  freed with the engine (``graph_stats`` reports them). On the CPU the same
+  step bodies run eagerly on the same buffers.
 * **Stop conditions.** Per-request ``max_new_tokens`` and optional
   ``eos_token``, evaluated on the device inside the block; freed slots admit
   at the next block boundary.
@@ -182,7 +196,7 @@ def _unsupported(ec: EngineConfig, faults, draft_cfg, draft_params) -> None:
         later.append("a fault plan (resilience slice)")
     if ec.trace_guard != "off":
         later.append(f"trace_guard={ec.trace_guard!r} (tooling slice; the "
-                     f"port runs eagerly, use 'off')")
+                     f"port has no jit that could retrace, use 'off')")
     if later:
         raise NotImplementedError(
             "not served by this slice of the PyTorch port: " + "; ".join(later))
@@ -253,9 +267,10 @@ class Engine:
             raise ValueError(f"params live on {self.params.device}, the engine "
                              f"on {self.device}")
 
-        # host<->device crossing telemetry: device_calls counts step calls,
-        # host_syncs counts device->host readbacks, tokens_out counts
-        # generated tokens
+        # host<->device crossing telemetry: device_calls counts step calls
+        # (on the card a block's replay, or an admission group's replays,
+        # one per row), host_syncs counts device->host readbacks, tokens_out
+        # counts generated tokens
         self.counters: Dict[str, int] = {
             "device_calls": 0, "host_syncs": 0, "tokens_out": 0, "shed": 0}
         self._buckets = tuple(sorted(set(int(b) for b in ec.prefill_buckets)))
@@ -275,15 +290,11 @@ class Engine:
                 cfg, ec.n_slots, ec.s_max, self.device, n_blocks=n_blocks,
                 block_size=ec.kv_block, kv_dtype=ec.kv_dtype)
             self._tab_dirty = True
-            self._admit_step = ST.make_slot_admit_paged(cfg)
         else:
             self.cache = MD.init_slot_cache(cfg, ec.n_slots, ec.s_max,
                                             self.device,
                                             block_size=ec.kv_block)
-            self._admit_step = ST.make_slot_admit(cfg)
-        self._decode = ST.make_slot_decode(cfg, ec.temperature)
-        self._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
-                                                       ec.temperature)
+        self._build_steps()
 
         self._slot_req: List[Optional[Request]] = [None] * ec.n_slots
         self._last_tok = np.zeros((ec.n_slots,), np.int32)
@@ -444,6 +455,73 @@ class Engine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _graph_maker(self):
+        """Graph factory of the graphed steps, by pool: CUDA graphs on a
+        CUDA device (the decode graphs share one pool, the admission graphs
+        another, one side stream for all), None elsewhere (the step bodies
+        run eagerly)."""
+        if self.device.type != "cuda":
+            return None
+        with torch.cuda.device(self.device):
+            pools = {"decode": torch.cuda.graph_pool_handle(),
+                     "admit": torch.cuda.graph_pool_handle()}
+            stream = torch.cuda.Stream(self.device)
+        return lambda pool: ST.CudaGraph(pools[pool], stream)
+
+    def _build_steps(self) -> None:
+        """The step callables and the static decode inputs ``_in``. Every
+        step gets the cache's ``slot_consts``, built once here; on the card
+        (``_graph_maker``) each is wrapped in its graph."""
+        cfg, ec, n = self.cfg, self.ec, self.ec.n_slots
+        consts = MD.slot_consts(cfg, self.cache)
+        self._in = {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                    for name, shape, dtype in (
+                        ("token", (n,), torch.int32),
+                        ("active", (n,), torch.bool),
+                        ("remaining", (n,), torch.int32),
+                        ("eos", (n,), torch.int32),
+                        ("keys", (n, 2), torch.int64))}
+        paged = self._alloc is not None
+        admit = (ST.make_slot_admit_paged if paged else ST.make_slot_admit)(
+            cfg, consts)
+        decode = ST.make_slot_decode(cfg, ec.temperature, consts)
+        multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
+                                          ec.temperature, consts)
+        self._graphed: Dict[str, object] = {}
+        new_graph = self._graph_maker()
+        if new_graph is not None:
+            row = (ST.admit_row_paged if paged else ST.admit_row)(cfg, consts)
+            b = self._in
+            admit = ST.GraphedAdmit(row, self.params, self.cache,
+                                    lambda: new_graph("admit"))
+            decode = ST.GraphedStep(decode, self.params, self.cache,
+                                    (b["token"], b["active"], b["keys"]),
+                                    lambda: new_graph("decode"))
+            multi = ST.GraphedStep(multi, self.params, self.cache,
+                                   (b["token"], b["active"], b["remaining"],
+                                    b["eos"], b["keys"]),
+                                   lambda: new_graph("decode"))
+            self._graphed = {"admit": admit, "decode step": decode,
+                             "decode block": multi}
+        self._admit_step, self._decode, self._decode_multi = \
+            admit, decode, multi
+
+    def _load(self, name: str, a: np.ndarray) -> torch.Tensor:
+        """Copy a host array into the static input buffer ``name``."""
+        buf = self._in[name]
+        buf.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        return buf
+
+    def graph_stats(self) -> Dict[str, dict]:
+        """The CUDA graphs this engine holds, by name (``"decode block"``,
+        ``"decode step"``, ``"admit <pad shape>"``): warm-up, capture and
+        instantiate seconds (paid at the graph's first use), replays, the
+        launches one replay credits and the bytes the capture added to the
+        pool. Empty off the card."""
+        return {key if name == "admit" else name: g.stats()
+                for name, graphed in self._graphed.items()
+                for key, g in graphed.graphs.items()}
+
     def step(self, now: float | None = None) -> List[Request]:
         """Admit due requests, run ONE decode step, evict finished. Returns
         the requests that finished during this step. The step-at-a-time
@@ -453,8 +531,9 @@ class Engine:
         if self._active.any():
             self._sync_tab()
             _, aux, self.cache = self._decode(
-                self.params, self.cache, self._dev(self._last_tok),
-                self._dev(self._active), self._dev(self._slot_keys))
+                self.params, self.cache, self._load("token", self._last_tok),
+                self._load("active", self._active),
+                self._load("keys", self._slot_keys))
             self.counters["device_calls"] += 1
             aux_np = aux.cpu().numpy()       # ONE readback: (token, finite)
             self.counters["host_syncs"] += 1
@@ -474,9 +553,13 @@ class Engine:
 
     def step_block(self, now: float | None = None) -> List[Request]:
         """Admit due requests, then run ``decode_block`` decode steps in ONE
-        device block with one readback. Returns finished requests; their
-        ``t_finished`` is the block-start clock plus the inner step they
-        stopped at, so step accounting matches the per-step loop."""
+        device block with one readback. On the card the block is one replay
+        of the ``"decode block"`` CUDA graph: the host copies token, active,
+        remaining, eos and keys into the static buffers ``_in``, replays
+        (which credits the kernels' launch counts with the capture's), and
+        reads the ``[K, B, 3]`` block back once. Returns finished requests;
+        their ``t_finished`` is the block-start clock plus the inner step
+        they stopped at, so step accounting matches the per-step loop."""
         now = self._now() if now is None else now
         finished = self._admit(now)
         K = self.ec.decode_block
@@ -495,9 +578,9 @@ class Engine:
             eos[s] = -1 if req.eos_token is None else req.eos_token
         self._sync_tab()
         block, _, self.cache = self._decode_multi(
-            self.params, self.cache, self._dev(self._last_tok),
-            self._dev(self._active), self._dev(rem), self._dev(eos),
-            self._dev(self._slot_keys))
+            self.params, self.cache, self._load("token", self._last_tok),
+            self._load("active", self._active), self._load("remaining", rem),
+            self._load("eos", eos), self._load("keys", self._slot_keys))
         self.counters["device_calls"] += 1
         # ONE readback: [K, B, (tok, emit, finite)]
         block_np = block.cpu().numpy()
