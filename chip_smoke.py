@@ -105,6 +105,25 @@ one JSON line:
             CUDA-core route (the route before the tensor-core one); each
             profile reports the paged attention kernels' share, and is taken
             twice: the block replayed from its graph and run eagerly
+  spec      speculative decoding (SPEC_K = 4 proposals a round, each round
+            one replay of the engine's "spec round" graph, each admitted
+            prompt one replay of each model's admission graph): at the serve
+            phase's depth, the model as its own draft (acceptance exactly
+            1.0) and a random 2-layer draft at the same widths (acceptance
+            near 0), both token for token the plain dense engine; verify
+            over [t0, d_1..d_4] == five decode steps, bitwise, on logits and
+            every K/V row, dense cache, paged bf16 and int8 pools, the
+            verify's paged kernel (40 query rows, per-row lens) and grouped
+            kernel held to their plain versions; a verify's device ms beside
+            a decode step's; a reading: which glue operation gives a row
+            other bits at 8 decode rows against their verify's 40, and at 64
+            against 320. In the compress phase, the MergeMoE model drafts
+            for the model it was merged from (dense cache greedy and at
+            temperature 0.7, paged bf16 with prefix hits, paged int8), tokens
+            equal to the plain engine's in each form, and the round on its
+            graph == eager (both caches after every step, every call's
+            outputs) in the dense and the paged int8 form. Launch counts
+            exact; acceptance, rounds, ms per round, tokens/s beside plain
   graphs    in every serve form of both families (and the single step of
             decode_block=1), an engine replaying its graphs and one running
             the same bodies eagerly, in lockstep on 16 requests: every
@@ -135,7 +154,8 @@ one JSON line:
             flash kernel in every layer), the suffix merged 128 -> 64 in fp64
             on the host, held-out loss of both models; MergeMoE's in-sample
             output error on a merged layer at most M-SMoE's; the compressed
-            model served in bf16 and with int8 tables
+            model served in bf16, drafting for the full model (the spec
+            line) and with int8 tables
   witness   (--witness-layers N only) the paged int8 pool's top-1 against the
             bf16 pool at full width and depth N, on the card and on the CPU's
             plain path, same weights and contexts
@@ -1683,21 +1703,28 @@ PAGED = dict(kv_layout="paged", kv_block=KV_BLOCK)
 PAGED_INT8 = dict(PAGED, kv_dtype="int8")
 
 
-def serve(cfg, model, trace, device, **ec_kw):
+def serve(cfg, model, trace, device, draft=None, **ec_kw):
     """Drive the trace through an Engine. Returns a dict with the tokens,
     counters, the admission shapes and times, decode block times, kernel
     launches, the engine's paging telemetry and its CUDA graphs (on the
     card every decode block and every admitted prompt is a replay: checked
-    against the calls made)."""
+    against the calls made). ``draft``: (cfg, model) of a speculative
+    draft; then the blocks are the spec rounds (each one replay of the
+    ``"spec round"`` graph) and every admitted prompt is a replay of each
+    model's admission graph."""
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
     from repro_torch.serving import Engine
-    eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device)
+    eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device,
+                 draft_cfg=draft[0] if draft else None,
+                 draft_params=draft[1] if draft else None)
     admits, admit_ms, block_ms = [], [], []
     admit, multi, single = eng._admit_step, eng._decode_multi, eng._decode
     cuda = torch.device(device).type == "cuda"
     check(isinstance(multi, ST.GraphedStep) == cuda
-          and isinstance(admit, ST.GraphedAdmit) == cuda,
+          and isinstance(admit, ST.GraphedAdmit) == cuda
+          and (not eng.spec
+               or isinstance(eng._decode_spec, ST.GraphedRound) == cuda),
           f"an engine on {device} does not take its graphs as it should")
 
     def timed(fn, into):
@@ -1718,6 +1745,12 @@ def serve(cfg, model, trace, device, **ec_kw):
         admits.append(tuple(tokens.shape))
         return timed_admit(m, c, tokens, *rest)
 
+    if eng.spec:
+        timed_admit = timed(eng._admit_spec, admit_ms)
+        eng._admit_spec = lambda m, dm, c, dc, tokens, *rest: (
+            admits.append(tuple(tokens.shape)),
+            timed_admit(m, dm, c, dc, tokens, *rest))[1]
+        eng._decode_spec = timed(eng._decode_spec, block_ms)
     eng._admit_step = admit_logged
     eng._decode_multi = timed(multi, block_ms)
     eng._decode = timed(single, block_ms)
@@ -1749,20 +1782,34 @@ def serve(cfg, model, trace, device, **ec_kw):
     graphs = eng.graph_stats()
     if cuda:
         step = "decode block" if eng.ec.decode_block > 1 else "decode step"
+        step = "spec round" if eng.spec else step
         check(graphs[step]["replays"] == len(block_ms),
               f"{graphs[step]['replays']} replays of the {step} graph for "
               f"{len(block_ms)} blocks")
-        check(sum(g["replays"] for k, g in graphs.items()
-                  if k.startswith("admit")) == sum(s[0] for s in admits),
-              "an admitted prompt was not a replay of its pad shape's graph")
+        def replays(draft):
+            return sum(g["replays"] for k, g in graphs.items()
+                       if k.startswith("admit ")
+                       and k.startswith("admit draft ") == draft)
+        for draft_model in (False, True)[:1 + eng.spec]:
+            check(replays(draft_model) == sum(s[0] for s in admits),
+                  f"an admitted prompt was not a replay of its pad shape's "
+                  f"graph (draft model: {draft_model})")
     if eng._alloc is not None:
         eng._alloc.check_invariants()
+    spec = {}
+    if eng.spec:
+        check(torch.equal(eng.cache["pos"], eng.cache_draft["pos"]),
+              "spec: the two caches' pos differ after the trace")
+        spec = dict(spec_k=eng.ec.spec_k, rounds=len(block_ms),
+                    acceptance_rate=eng.acceptance_rate)
     return dict(tokens=[list(r.out_tokens) for r in reqs], counters=dict(c),
+                spec=spec,
                 graphs=graphs,
                 admits=admits, admit_ms=admit_ms, block_ms=block_ms,
                 wall_s=wall, launches=launches, routes=routes,
                 n_blocks=len(block_ms),
-                steps_per_block=eng.ec.decode_block,
+                steps_per_block=eng.ec.spec_k if eng.spec
+                else eng.ec.decode_block,
                 paging_stats=eng.paging_stats,
                 kv_dtype_served=eng.kv_dtype_served,
                 expert_weight_dtypes=list(eng.expert_weight_dtypes()),
@@ -2261,6 +2308,14 @@ def eager_steps(eng):
     eng._decode = ST.make_slot_decode(cfg, ec.temperature, consts)
     eng._decode_multi = ST.make_slot_decode_multi(cfg, ec.decode_block,
                                                   ec.temperature, consts)
+    if eng.spec:
+        dconsts = MD.slot_consts(eng.draft_cfg, eng.cache_draft)
+        dual = ST.make_slot_admit_spec_paged if eng._alloc is not None \
+            else ST.make_slot_admit_spec
+        eng._admit_spec = dual(cfg, eng.draft_cfg, steps=(
+            eng._admit_step, admit(eng.draft_cfg, dconsts)))
+        eng._decode_spec = ST.make_slot_decode_spec(
+            cfg, eng.draft_cfg, ec.spec_k, ec.temperature, consts, dconsts)
     eng._graphed = {}
     return eng
 
@@ -2289,25 +2344,81 @@ def recorded(eng) -> list:
         log.append(("step", logits.clone(), aux.clone()))
         return logits, aux, c
     eng._admit_step, eng._decode_multi, eng._decode = a, b, s
+    if eng.spec:
+        admit_spec, spec = eng._admit_spec, eng._decode_spec
+
+        def a2(m, dm, c, dc, tokens, *rest):
+            logits, greedy, c, dc = admit_spec(m, dm, c, dc, tokens, *rest)
+            log.append(("admit", tuple(tokens.shape), logits.clone(),
+                        greedy.clone()))
+            return logits, greedy, c, dc
+
+        def r(*args):
+            block, act, c, dc = spec(*args)
+            log.append(("round", block.clone()))
+            return block, act, c, dc
+        eng._admit_spec, eng._decode_spec = a2, r
     return log
 
 
+def caches_equal(g, e, committed_only: bool = False) -> bool:
+    """Two caches bitwise, a pool's sink block excepted (sentinel writes
+    land there, several on one row, in no fixed order; no table entry owns
+    it). ``committed_only``: a dense cache's K/V rows only below each slot's
+    ``pos`` (a speculative round leaves rejected drafts past it)."""
+    for name in g:
+        a, b = g[name], e[name]
+        if name in ("kp", "vp", "ks", "vs"):
+            a, b = a[:, :-1], b[:, :-1]
+        elif committed_only and name in ("k", "v"):
+            keep = (torch.arange(a.shape[2], device=a.device)[None, :]
+                    < g["pos"][:, None])[None, :, :, None, None]
+            a, b = torch.where(keep, a, 0), torch.where(keep, b, 0)
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+def round_rows_equal(g: torch.Tensor, e: torch.Tensor) -> bool:
+    """Two speculative rounds' ``[K+1, B, 3]`` blocks on what the engine
+    reads, bitwise: row K (accepted, drafted, 1) and the emitted lane of
+    every slot, and every lane of the slots that drafted. An idle slot of a
+    paged pool has the sentinel table row, so its draft and verify rows
+    attend the write-only sink block, which the round's sentinel writes
+    (every idle slot's K + 1 verify rows and K draft rows a layer) hit
+    several to a row in no fixed order: its candidate tokens and finite
+    flags, never emitted, are not compared."""
+    K = g.shape[0] - 1
+    live = g[K, :, 1] > 0
+    return (torch.equal(g[K], e[K]) and torch.equal(g[:K, :, 1], e[:K, :, 1])
+            and torch.equal(g[:K][:, live], e[:K][:, live]))
+
+
 def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
-                   new_tokens: int = 9, **ec_kw) -> dict:
-    """A serve form (``ec_kw``) driven by two engines in lockstep: one
-    replaying its CUDA graphs, one running the same bodies eagerly. After
-    every engine step the whole cache (``pos``, every KV row or pool block
-    but the sink, the table) must be bitwise equal; at the end, every call's outputs
-    (each admission group's logits and first tokens, at every pad shape the
-    trace uses, and each decode block or step) and the tokens. With 8
-    slots, 16 requests and ``new_tokens = K + 1`` each request lives one
-    admission and one block."""
+                   new_tokens: int = 9, draft=None, **ec_kw) -> dict:
+    """A serve form (``ec_kw``; ``draft``: a speculative draft's (cfg,
+    model)) driven by two engines in lockstep: one replaying its CUDA
+    graphs, one running the same bodies eagerly. After every engine step
+    the whole cache (``pos``, every KV row or pool block but the sink, the
+    table; a speculative engine's two caches, dense K/V rows below ``pos``)
+    must be bitwise equal; at the end, every call's outputs (each admission
+    group's logits and first tokens, at every pad shape the trace uses, and
+    each decode block, step or round; of a round, what ``round_rows_equal``
+    compares when the whole block is not equal, which is counted) and the
+    tokens. With 8 slots, 16
+    requests and ``new_tokens = K + 1`` each request lives one admission
+    and one block."""
     from repro_torch.launch import steps as ST
     from repro_torch.serving import Engine
     engs = {mode: Engine(engine_config(**ec_kw), cfg=cfg, params=model,
-                         device=device) for mode in ("graph", "eager")}
+                         device=device,
+                         draft_cfg=draft[0] if draft else None,
+                         draft_params=draft[1] if draft else None)
+            for mode in ("graph", "eager")}
     eager_steps(engs["eager"])
-    check(isinstance(engs["graph"]._decode_multi, ST.GraphedStep),
+    check(isinstance(engs["graph"]._decode_multi, ST.GraphedStep)
+          and (draft is None
+               or isinstance(engs["graph"]._decode_spec, ST.GraphedRound)),
           "the engine on the card does not replay graphs")
     logs = {m: recorded(e) for m, e in engs.items()}
     reqs = {m: [e.submit(r["prompt"], max_new_tokens=new_tokens,
@@ -2316,32 +2427,39 @@ def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
     steps = 0
     while not engs["graph"].idle:
         for e in engs.values():
-            e.step_block() if e.ec.decode_block > 1 else e.step()
+            if e.spec:
+                e.step_spec()
+            elif e.ec.decode_block > 1:
+                e.step_block()
+            else:
+                e.step()
         torch.cuda.synchronize()
         steps += 1
-        g, e = engs["graph"].cache, engs["eager"].cache
-        for name in g:
-            # a pool's last block is the write-only sink of sentinel
-            # writes (several rows may land on one sink row, in no fixed
-            # order): no table entry owns it and nothing reads it
-            own = slice(None, -1) if name in ("kp", "vp", "ks", "vs") \
-                else slice(None)
-            check(torch.equal(g[name][:, own], e[name][:, own])
-                  if g[name].dim() > 1 else torch.equal(g[name], e[name]),
-                  f"graph != eager: cache[{name!r}] after engine step {steps}"
-                  f" ({ec_kw})")
+        for which in ("cache", "cache_draft"):
+            g, e = (getattr(eng, which) for eng in engs.values())
+            check(g is None or caches_equal(g, e, committed_only=draft
+                                            is not None),
+                  f"graph != eager: {which} after engine step {steps} "
+                  f"({ec_kw})")
     check(engs["eager"].idle, "graph != eager: the eager engine has work left")
     check(len(logs["graph"]) == len(logs["eager"]),
           "graph != eager: another number of step calls")
+    idle_rows_differ = 0
     for gl, el in zip(logs["graph"], logs["eager"]):
-        check(gl[0] == el[0] and all(
+        same = gl[0] == el[0] and all(
             torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
-            for a, b in zip(gl[1:], el[1:])),
-              f"graph != eager: the outputs of a {gl[0]} call ({ec_kw})")
+            for a, b in zip(gl[1:], el[1:]))
+        if not same and gl[0] == el[0] == "round":
+            idle_rows_differ += 1
+            same = round_rows_equal(gl[1], el[1])
+        check(same, f"graph != eager: the outputs of a {gl[0]} call "
+                    f"({ec_kw})")
     tokens = {m: [list(r.out_tokens) for r in rs] for m, rs in reqs.items()}
     check(tokens["graph"] == tokens["eager"], "graph != eager: tokens")
     kinds = [entry[0] for entry in logs["graph"]]
     return dict(bitwise=True, engine_steps=steps,
+                **({"rounds_whose_idle_slot_rows_differ": idle_rows_differ}
+                   if draft is not None else {}),
                 admission_groups=kinds.count("admit"),
                 decode_calls=len(kinds) - kinds.count("admit"),
                 pad_shapes=sorted({entry[1][1] for entry in logs["graph"]
@@ -3020,6 +3138,350 @@ def rehearse(args, full_cfg, dense_cfg, device):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding: the draft proposes, the full model verifies
+# ---------------------------------------------------------------------------
+
+#: draft proposals per round in the spec phase
+SPEC_K = 4
+
+
+def check_spec_launches(res, n_layers: int, draft_layers: int,
+                        kv: str = "dense"):
+    """Every kernel's launches in one speculative serve: per ADMITTED ROW
+    the flash and the grouped kernel once per layer of either model (both
+    prefill the row alone); per round the draft's SPEC_K decode steps (the
+    gather kernel and the paged kernel of the pool's type once per draft
+    layer and step) and the full model's one verify forward (the grouped
+    kernel once per layer over all B * (SPEC_K + 1) rows, the paged kernel
+    once per layer over as many query rows); nothing else, and in bf16
+    only the tensor-core routes."""
+    rounds = res["n_blocks"]
+    rows = sum(shape[0] for shape in res["admits"])
+    paged = "paged_attention_q" if kv == "int8" else "paged_attention"
+    used = {"flash_attention": rows * (n_layers + draft_layers),
+            "grouped_swiglu": rows * (n_layers + draft_layers)
+            + rounds * n_layers,
+            "gather_swiglu": rounds * SPEC_K * draft_layers,
+            paged: rounds * (SPEC_K * draft_layers + n_layers)}
+    want = {name: used.get(name, 0) for name in TABLE}
+    check(res["launches"] == want,
+          f"spec launches {res['launches']} != expected {want}")
+    check(all(n > 0 for n in used.values()),
+          f"spec: a kernel of this form never launched: {res['launches']}")
+    check_routes(res["routes"], "bfloat16")
+
+
+def spec_summary(res, plain, card) -> dict:
+    """A speculative serve beside the plain engine's serve of the same
+    trace and form."""
+    n_tok = sum(len(t) for t in res["tokens"])
+    graphs = graph_summary(res["graphs"])
+    p_graphs = graph_summary(plain["graphs"])
+    return dict(card=card, **res["spec"], requests=len(res["tokens"]),
+                tokens=n_tok, counters=res["counters"],
+                tokens_equal_plain=res["tokens"] == plain["tokens"],
+                committed_tokens_per_round_per_active_slot=(
+                    res["counters"]["tokens_out"] - len(res["tokens"]))
+                / max(res["counters"]["tokens_drafted"] / SPEC_K, 1),
+                ms_per_round_median=statistics.median(res["block_ms"]),
+                ms_per_round_max=max(res["block_ms"]),
+                plain_ms_per_decode_block_median=statistics.median(
+                    plain["block_ms"]),
+                plain_steps_per_block=plain["steps_per_block"],
+                tokens_per_s=n_tok / res["wall_s"],
+                plain_tokens_per_s=n_tok / plain["wall_s"],
+                tokens_per_s_without_graph_setup=n_tok / (
+                    res["wall_s"] - graphs["setup_s"]),
+                plain_tokens_per_s_without_graph_setup=n_tok / (
+                    plain["wall_s"] - p_graphs["setup_s"]),
+                ms_per_admission_median=statistics.median(res["admit_ms"]),
+                plain_ms_per_admission_median=statistics.median(
+                    plain["admit_ms"]),
+                launches=res["launches"], paging_stats=res["paging_stats"],
+                cuda_graphs=graphs)
+
+
+def spec_serve(cfg, model, draft, trace, device, card, forms, totals,
+               plain_tokens=None, **expect) -> dict:
+    """Serve ``trace`` with ``draft`` (cfg, model) at SPEC_K in each form
+    ``forms`` {name: engine kwargs} beside the plain engine in the same
+    form (``plain_tokens``: the plain dense engine's tokens, when they are
+    known already): the tokens must be the plain engine's, every round one
+    graph replay, the launch counts exact (added to ``totals``: (launches,
+    routes)). ``expect``: ``acceptance`` the rate that must be read exactly.
+    Returns each form's ``spec_summary``."""
+    out = {}
+    for form, kw in forms.items():
+        plain = serve(cfg, model, trace, device, **kw)
+        if plain_tokens is not None:
+            check(plain["tokens"] == plain_tokens,
+                  f"spec {form}: the plain engine's tokens moved")
+        res = serve(cfg, model, trace, device, draft=draft, spec_k=SPEC_K,
+                    **kw)
+        kv = kw.get("kv_dtype", "bf16") if "kv_layout" in kw else "dense"
+        check_spec_launches(res, cfg.n_layers, draft[0].n_layers, kv=kv)
+        for name, n in res["launches"].items():
+            totals[0][name] += n
+        add_routes(totals[1], res["routes"])
+        check(res["tokens"] == plain["tokens"],
+              f"spec {form}: tokens differ from the plain engine's "
+              f"({top1(res['tokens'], plain['tokens'])} agree)")
+        if kw.get("kv_layout") == "paged" and kv == "bf16":
+            check(res["paging_stats"]["prefix_hits"] > 0,
+                  f"spec {form}: no prefix hit")
+        if "acceptance" in expect:
+            check(res["spec"]["acceptance_rate"] == expect["acceptance"],
+                  f"spec {form}: acceptance {res['spec']['acceptance_rate']}"
+                  f" != {expect['acceptance']}")
+        out[form] = spec_summary(res, plain, card)
+    return out
+
+
+def spec_taps():
+    """Patch the kernels a verify runs (``ops.paged_attention`` /
+    ``paged_attention_q`` / ``grouped_swiglu`` / ``grouped_swiglu_q``) to
+    keep the inputs and output of each one's first call; returns (the
+    record, a function that undoes the patch)."""
+    from repro_torch.kernels import ops
+    seen, real = {}, {}
+    for name in ("paged_attention", "paged_attention_q", "grouped_swiglu",
+                 "grouped_swiglu_q"):
+        real[name] = getattr(ops, name)
+
+        def tap(*a, _name=name):
+            out = real[_name](*a)
+            seen.setdefault(_name, (a, out.clone()))
+            return out
+        setattr(ops, name, tap)
+
+    def undo():
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    return seen, undo
+
+
+def hold_verify_kernels(seen: dict) -> dict:
+    """Each kernel's first call inside a verify forward (B * (SPEC_K + 1)
+    rows; per-row ``lens`` for the paged kernels) against its plain version
+    on the same inputs widened to fp32, with the kernels phase's
+    tolerances."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name, (a, got) in seen.items():
+        plain = ops.KERNELS[name].plain
+        if name.startswith("paged"):
+            q, rest = a[0], a[1:]
+            pools = [t.float() if t.dtype == torch.bfloat16 else t
+                     for t in rest[:-2]]
+            want = plain(q.float(), *pools, *rest[-2:])
+            vmax = (float(rest[1].float().abs().max()) if name ==
+                    "paged_attention" else float(rest[3].abs().max() * 127))
+            tol = attn_tol_for(got.dtype, want, vmax)
+            rows, extra = q.shape[0], dict(lens=[int(a[-1].min()),
+                                                 int(a[-1].max())])
+        elif name == "grouped_swiglu":
+            x, wg, wu, wd, gs = a
+            want = plain(x.float(), wg.float(), wu.float(), wd.float(), gs)
+            tol, rows, extra = moe_tol32(want), x.shape[0], {}
+        else:
+            x, qt, gs = a
+            want = plain(x, qt, gs)
+            tol, rows, extra = moe_tol_q(want), x.shape[0], {}
+        err, words = compare(f"{name} in a verify forward", got, want,
+                             got.dtype, tol=tol)
+        out[name] = dict(rows=rows, max_abs_err=err, tolerance=words, **extra)
+    return out
+
+
+def verify_vs_decode(cfg, model, device) -> dict:
+    """``model.verify_step_slots`` over ``[t0, d_1..d_K]`` (K = SPEC_K)
+    against K + 1 ``decode_step_slots`` calls fed the same tokens, from the
+    same admitted cache of 8 slots, in each layout (the dense cache with a
+    spec engine's lookahead rows, the paged pool in bf16 and int8): the
+    logits of every position and the whole cache after (every K/V row and
+    pool block but the sink), bitwise. The verify's kernels are held to
+    their plain versions on the way (``hold_verify_kernels``)."""
+    from repro_torch.models import model as MD
+    gcfg, toks, lengths, tok, act, gen = contract_inputs(cfg, device, seed=9)
+    B, s_max = toks.shape[0], 128
+    drafts = torch.randint(0, cfg.vocab_size, (B, SPEC_K), generator=gen,
+                           device=device)
+    vtok = torch.cat([tok[:, None], drafts], dim=1).to(torch.int32)
+    out = {}
+    for layout, kv in (("dense", None), ("paged bf16", "bf16"),
+                       ("paged int8", "int8")):
+        if kv is None:
+            cache = MD.init_slot_cache(gcfg, B, s_max, device,
+                                       block_size=KV_BLOCK,
+                                       lookahead=SPEC_K + 1)
+            extra = ()
+        else:
+            nb = B * s_max // KV_BLOCK
+            cache = MD.init_paged_cache(gcfg, B, s_max, device, n_blocks=nb,
+                                        block_size=KV_BLOCK, kv_dtype=kv)
+            cache["tab"][:B] = torch.arange(nb, dtype=torch.int32,
+                                            device=device).reshape(B, -1)
+            extra = (torch.zeros((B,), dtype=torch.int32, device=device),)
+        admission_step(gcfg, model, cache, device, paged=kv is not None)(
+            model, cache, toks, lengths, np.arange(B, dtype=np.int32), *extra)
+        ver = {n: t.clone() for n, t in cache.items()}
+        dec = {n: t.clone() for n, t in cache.items()}
+        seen, undo = spec_taps()
+        try:
+            vl, _ = MD.verify_step_slots(gcfg, model, ver, vtok)
+        finally:
+            undo()
+        dl = torch.stack([MD.decode_step_slots(gcfg, model, dec, vtok[:, t],
+                                               act)[0]
+                          for t in range(SPEC_K + 1)], dim=1)
+        torch.cuda.synchronize()
+        logits_ok = bool(torch.equal(vl, dl))
+        kv_ok = all(torch.equal(ver[n][:, :-1], dec[n][:, :-1])
+                    if n in ("kp", "vp", "ks", "vs") else torch.equal(
+                        ver[n], dec[n])
+                    for n in ver if n not in ("pos", "s_max", "kv_block"))
+        check(logits_ok, f"verify != {SPEC_K + 1} decode steps on logits "
+                         f"({layout}), max gap {float((vl - dl).abs().max())}")
+        check(kv_ok, f"verify != {SPEC_K + 1} decode steps on the K/V rows "
+                     f"({layout})")
+        out[layout] = dict(logits_bitwise=logits_ok, kv_rows_bitwise=kv_ok,
+                           kernels_vs_plain=hold_verify_kernels(seen))
+        del ver, dec, cache
+        free()
+    return out
+
+
+def verify_cost(cfg, model, device) -> dict:
+    """Device ms (``graph_ms``) of one verify forward over SPEC_K + 1
+    positions and of one decode step, 8 busy slots, dense cache, the same
+    admitted prompts: the full model's share of a round beside a plain
+    step (the verify runs its glue once per position block, its kernels
+    once over all rows)."""
+    from repro_torch.models import model as MD
+    gcfg, toks, lengths, tok, act, gen = contract_inputs(cfg, device, seed=9)
+    B = toks.shape[0]
+    cache = MD.init_slot_cache(gcfg, B, 128, device, block_size=KV_BLOCK,
+                               lookahead=SPEC_K + 1)
+    admission_step(gcfg, model, cache, device)(
+        model, cache, toks, lengths, np.arange(B, dtype=np.int32))
+    consts = MD.slot_consts(gcfg, cache)
+    vtok = torch.randint(0, cfg.vocab_size, (B, SPEC_K + 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    pos = cache["pos"].clone()
+
+    def verify():
+        MD.verify_step_slots(gcfg, model, cache, vtok, consts)
+
+    def step():
+        MD.decode_step_slots(gcfg, model, cache, tok, act, consts)
+        cache["pos"].copy_(pos)
+    v_ms, s_ms = graph_ms(verify, calls=3), graph_ms(step, calls=3)
+    del cache
+    free()
+    return dict(verify_ms=v_ms, decode_step_ms=s_ms,
+                verify_over_step=v_ms / s_ms, positions=SPEC_K + 1)
+
+
+def rows_decode_vs_verify(cfg, model, device, B: int) -> dict:
+    """A reading, not a check: one layer's glue operations and the LM head
+    on the same inputs, as B decode rows (``[B, 1, d]``, a decode step's
+    call) and as the rows of a verify laid out the reference's way (``[B,
+    SPEC_K + 1, d]``, in one call): for each operation in the layer's
+    order, whether every decode row is bitwise its verify row, and the
+    first that is not. The port's verify runs each of these per position
+    block, at the decode step's shape, whatever this reads."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MO
+    from repro_torch.models.numerics import ein, ein32
+    gen = torch.Generator(device=device).manual_seed(17)
+    T, d = SPEC_K + 1, cfg.d_model
+    blk = model.stacks()[0][0]
+    dt = cfg.param_dtype
+    x = torch.randn((B, T, d), generator=gen, device=device).to(dt)
+    heads = torch.randn((B, T, cfg.n_heads * cfg.hd), generator=gen,
+                        device=device).to(dt)
+    xn = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
+    r32 = ein32("...d,de->...e", xn, blk.moe.router)
+    top = MO._topk_iterative(r32, cfg.moe.top_k)[0]
+    ops_ = [("rmsnorm", lambda a: L.rmsnorm(blk.ln1, a, cfg.norm_eps), x),
+            ("wq (bf16)", lambda a: ein("bsd,dh->bsh", a, blk.attn.wq), x),
+            ("wk (bf16)", lambda a: ein("bsd,dh->bsh", a, blk.attn.wk), x),
+            ("wv (bf16)", lambda a: ein("bsd,dh->bsh", a, blk.attn.wv), x),
+            ("wo (bf16)", lambda a: ein("bsh,hd->bsd", a, blk.attn.wo), heads),
+            ("router (fp32)",
+             lambda a: ein32("...d,de->...e", a, blk.moe.router), xn),
+            ("top-k", lambda a: torch.stack(
+                MO._topk_iterative(a, cfg.moe.top_k), dim=0).float(), r32),
+            ("softmax over k", lambda a: torch.softmax(a, dim=-1), top),
+            ("lm_head (fp32 out)",
+             lambda a: L.lm_head(cfg, model.embed, a), x)]
+    alike = {}
+    for name, fn, a in ops_:
+        whole = fn(a)
+        alike[name] = all(
+            bool(torch.equal(whole.select(-2, t),
+                             fn(a[:, t:t + 1].contiguous()).select(-2, 0)))
+            for t in range(T))
+    torch.cuda.synchronize()
+    first = next((n for n, ok in alike.items() if not ok), None)
+    return dict(decode_rows=B, verify_rows=B * T, rows_bitwise=alike,
+                first_operation_with_other_bits=first)
+
+
+def spec_self_and_adversarial(cfg, model, trace, device, card, plain_tokens,
+                              totals, seed) -> dict:
+    """At the serve phase's depth: the trace served with the model as its
+    own draft (its own cache; acceptance must read exactly 1.0) and with a
+    2-layer random model at the same widths (acceptance near 0, heavy
+    rollback), both token for token the plain dense engine
+    (``plain_tokens``); the function-level verify == decode, the verify's
+    cost beside a decode step and the row counts reading (8 slots against
+    their verify's 40 rows, 64 against 320) on the same model."""
+    adv_cfg = cfg.replace(n_layers=2)
+    adv, _ = build_model(adv_cfg, device, seed + 1)
+    out = dict(
+        layers=cfg.n_layers,
+        self_draft=spec_serve(cfg, model, (cfg, model), trace, device, card,
+                              {"dense cache": {}}, totals,
+                              plain_tokens=plain_tokens, acceptance=1.0),
+        adversarial_draft=spec_serve(cfg, model, (adv_cfg, adv), trace,
+                                     device, card, {"dense cache": {}},
+                                     totals, plain_tokens=plain_tokens),
+        verify_vs_decode=verify_vs_decode(cfg, model, device),
+        verify_cost=verify_cost(cfg, model, device),
+        rows_decode_vs_verify=[rows_decode_vs_verify(cfg, model, device, B)
+                               for B in (8, 64)])
+    adv_rate = out["adversarial_draft"]["dense cache"]["acceptance_rate"]
+    check(adv_rate < 0.25, f"spec: a random draft accepted {adv_rate}")
+    del adv
+    free()
+    return out
+
+
+def spec_merged(cfg, model, ncfg, nmodel, trace, device, card,
+                totals) -> dict:
+    """The compress phase's pair: the MergeMoE model drafts for the model
+    it was merged from, on the serve trace, dense cache greedy and at
+    temperature 0.7, paged bf16 pool with prefix hits, paged int8 pool;
+    then graph == eager on the round in the dense and the paged int8
+    forms."""
+    forms = {"dense cache": {},
+             f"dense cache, temperature {TEMPERATURE}":
+                 dict(temperature=TEMPERATURE),
+             "paged bf16 KV": PAGED, "paged int8 KV": PAGED_INT8}
+    out = dict(layers=cfg.n_layers, draft=dict(
+        merged_layers=[ncfg.moe_split, ncfg.n_layers],
+        merged_experts=ncfg.moe_merged),
+        forms=spec_serve(cfg, model, (ncfg, nmodel), trace, device, card,
+                         forms, totals))
+    out["graph_equals_eager"] = {
+        form: graph_vs_eager(cfg, model, trace, device, n_requests=8,
+                             draft=(ncfg, nmodel), spec_k=SPEC_K, **kw)
+        for form, kw in (("dense cache", {}), ("paged int8 KV", PAGED_INT8))}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # MergeMoE compression at full width
 # ---------------------------------------------------------------------------
 
@@ -3095,9 +3557,10 @@ def compress_phase(args, full_cfg, device, card, trace):
     config's own capacity dispatch, the flash kernel in every layer), the
     suffix merged 128 -> 64 by ``launch.compress.run`` (fp64 host solves),
     held-out loss of both models; the in-sample check on the first merged
-    layer; the compressed model served in bf16 and with int8 tables.
-    Returns the launches of the compression run and of the two serves, by
-    kernel and by kernel and route."""
+    layer; the compressed model served in bf16, then drafting for the model
+    it was merged from (``spec_merged``, its ``spec`` line), then served
+    with int8 tables. Returns the launches of the compression run and of
+    the serves, by kernel and by kernel and route."""
     from repro_torch.core import calibration as CAL
     from repro_torch.kernels import ops
     from repro_torch.launch import compress as LC
@@ -3142,13 +3605,25 @@ def compress_phase(args, full_cfg, device, card, trace):
           "a remap entry past the merged tables")
     insample = in_sample_errors(model, nmodel, stream, split, device)
     rss = host_rss_gb()
-    del model, stream
+    del stream
     free()
-    # the compressed model served: bf16, then int8 tables
+    # the compressed model served: bf16, then (after it drafted for the
+    # full model) int8 tables
     served = {}
     weights = weights_gb(nmodel)
+    spec_totals = ({name: 0 for name in TABLE},
+                   {name: dict.fromkeys(r, 0)
+                    for name, r in ops.route_launch_counts().items()})
     for form in ("bf16", "int8"):
         if form == "int8":
+            t0 = time.perf_counter()
+            emit("spec", model=cfg.name, pair="MergeMoE draft", card=card,
+                 **spec_merged(cfg, model, ncfg, nmodel,
+                               trace[:COMPRESS_REQUESTS], device, card,
+                               spec_totals),
+                 seconds=time.perf_counter() - t0)
+            del model
+            free()
             q_s = quantize(nmodel)
         serve(ncfg, nmodel, trace[:2], device)
         res = serve(ncfg, nmodel, trace[:COMPRESS_REQUESTS], device)
@@ -3181,6 +3656,9 @@ def compress_phase(args, full_cfg, device, card, trace):
         for name, n in res["launches"].items():
             total[name] += n
         add_routes(routes, res["routes"])
+    for name, n in spec_totals[0].items():
+        total[name] += n
+    add_routes(routes, spec_totals[1])
     return total, routes
 
 
@@ -3363,6 +3841,14 @@ def main(argv=None) -> int:
                free_running_agreement_with_dense=top1(res["tokens"],
                                                       dense["tokens"]),
                teacher_forced_top1_vs_dense=top1(pred[form], dense["tokens"]))
+    # speculative decoding at this depth: the model as its own draft and a
+    # random 2-layer draft, verify == decode, the row-count reading
+    t1 = time.perf_counter()
+    spec_totals = (total_launches, total_routes)
+    emit("spec", model=cfg.name, pair="self and adversarial drafts",
+         card=card, **spec_self_and_adversarial(
+             cfg, model, trace, device, card, dense["tokens"], spec_totals,
+             args.seed), seconds=time.perf_counter() - t1)
     q_s = quantize(model)
     emit("contracts", layers=cfg.n_layers, form="int8 experts",
          **contracts_int8(cfg, model, device))

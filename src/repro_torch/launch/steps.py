@@ -9,7 +9,9 @@ graph captured over the body (:class:`StepGraph`): on the card the engine
 replays each decode block (:class:`GraphedStep` over
 :func:`make_slot_decode_multi`, or :func:`make_slot_decode` for the
 step-at-a-time loop) and each admitted prompt (:class:`GraphedAdmit`, one
-graph per pad shape at batch 1), so the device, not Python, drives serving.
+graph per pad shape at batch 1), and a speculative engine each draft /
+verify round (:class:`GraphedRound` over :func:`make_slot_decode_spec`), so
+the device, not Python, drives serving.
 On the CPU, and in ``chip_smoke.py``'s comparisons on the card, the bodies
 run eagerly. The kernels inside a graph are the same hand-written ones. The
 fault-injection ``poison`` argument of the reference's decode steps is not
@@ -241,11 +243,47 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
     return slot_decode_multi
 
 
+def make_slot_decode_spec(cfg: ModelConfig, draft_cfg: ModelConfig,
+                          k_draft: int, temperature: float = 0.0,
+                          consts: Optional[MD.SlotConsts] = None,
+                          draft_consts: Optional[MD.SlotConsts] = None
+                          ) -> Callable:
+    """The speculative round, ``serving.spec.build_slot_decode_spec``."""
+    from repro_torch.serving import spec
+    return spec.build_slot_decode_spec(cfg, draft_cfg, k_draft, temperature,
+                                       consts, draft_consts)
+
+
+def make_slot_admit_spec(cfg: ModelConfig, draft_cfg: ModelConfig,
+                         consts: Optional[MD.SlotConsts] = None,
+                         draft_consts: Optional[MD.SlotConsts] = None,
+                         steps=None) -> Callable:
+    """Dual-model admission, ``serving.spec.build_slot_admit_spec``."""
+    from repro_torch.serving import spec
+    return spec.build_slot_admit_spec(cfg, draft_cfg, consts, draft_consts,
+                                      steps)
+
+
+def make_slot_admit_spec_paged(cfg: ModelConfig, draft_cfg: ModelConfig,
+                               consts: Optional[MD.SlotConsts] = None,
+                               draft_consts: Optional[MD.SlotConsts] = None,
+                               steps=None) -> Callable:
+    """Dual-model paged admission,
+    ``serving.spec.build_slot_admit_spec_paged``."""
+    from repro_torch.serving import spec
+    return spec.build_slot_admit_spec_paged(cfg, draft_cfg, consts,
+                                            draft_consts, steps)
+
+
 # ---------------------------------------------------------------------------
 # CUDA graphs
 # ---------------------------------------------------------------------------
 
 def _clone_cache(cache):
+    """A scratch copy of a cache, or of a tuple of caches (a speculative
+    round's two)."""
+    if isinstance(cache, tuple):
+        return tuple(_clone_cache(c) for c in cache)
     return {name: t.clone() for name, t in cache.items()}
 
 
@@ -262,9 +300,10 @@ class CudaGraph:
         self.reserved_bytes = 0
 
     def warm_up(self, body: Callable, cache, inputs) -> None:
-        """Run ``body`` once on a scratch copy of ``cache`` on the side
-        stream: libraries built and loaded, library handles and workspaces
-        made, lazily built constants in place, the live cache untouched."""
+        """Run ``body`` once on a scratch copy of ``cache`` (of each cache of
+        a tuple) on the side stream: libraries built and loaded, library
+        handles and workspaces made, lazily built constants in place, the
+        live caches untouched."""
         scratch = _clone_cache(cache)
         here = torch.cuda.current_stream()
         self._stream.wait_stream(here)
@@ -381,6 +420,41 @@ class GraphedStep:
         return g.replay()
 
 
+class GraphedRound:
+    """A speculative round (:func:`make_slot_decode_spec`) replayed from one
+    :class:`StepGraph` (``graphs["spec round"]``), for one (model, draft)
+    pair and their two caches, whose tensors' addresses the graph holds: the
+    warm-up runs on scratch copies of both caches, and a round is one
+    replay. ``inputs``: the static buffers of token, active, remaining, eos
+    and keys (as :class:`GraphedStep`). Returns (block, active, cache,
+    draft_cache): the graph's tensors and the live caches."""
+
+    def __init__(self, step: Callable, model, draft, cache, draft_cache,
+                 inputs: Sequence[torch.Tensor], new_graph: Callable):
+        self._step = step
+        self._bound = (model, draft, cache, draft_cache)
+        self._inputs = tuple(inputs)
+        self._new_graph = new_graph
+        self.graphs: Dict[str, StepGraph] = {}
+
+    def __call__(self, model, draft, cache, draft_cache, *args):
+        if any(a is not b for a, b in zip((model, draft, cache, draft_cache),
+                                          self._bound)):
+            raise ValueError("a graphed round replays against the models and "
+                             "caches it was built for")
+        _load(self._inputs, args)
+        g = self.graphs.get("spec round")
+        if g is None:
+            step = self._step
+
+            def body(caches, *a):
+                return step(model, draft, caches[0], caches[1], *a)[:2]
+            g = self.graphs["spec round"] = StepGraph(
+                body, (cache, draft_cache), self._inputs, self._new_graph())
+        block, active = g.replay()
+        return block, active, cache, draft_cache
+
+
 class GraphedAdmit:
     """``make_slot_admit`` / ``make_slot_admit_paged`` (the same call
     signature) for one model and one cache: every row of a group replays the
@@ -388,15 +462,19 @@ class GraphedAdmit:
     :func:`admit_row_paged`) at batch 1 and is captured at the shape's first
     use; the group's logits are stacked and its greedy tokens taken once, as
     the eager builders do. ``row``: that body. The logits returned are
-    copies; the first tokens come from one argmax over the group."""
+    copies; the first tokens come from one argmax over the group. ``name``:
+    the graphs' key prefix (``"<name> <pad shape>"``; a speculative
+    engine's draft model admits as ``"admit draft"``)."""
 
-    def __init__(self, row: Callable, model, cache, new_graph: Callable):
+    def __init__(self, row: Callable, model, cache, new_graph: Callable,
+                 name: str = "admit"):
         self._row, self._model, self._cache = row, model, cache
         self._new_graph = new_graph
+        self.name = name
         self.graphs: Dict[str, StepGraph] = {}
 
     def _graph(self, tokens, args) -> StepGraph:
-        key = f"admit {tokens.shape[1]}"
+        key = f"{self.name} {tokens.shape[1]}"
         g = self.graphs.get(key)
         if g is None:
             row, m = self._row, self._model

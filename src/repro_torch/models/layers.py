@@ -1,6 +1,7 @@
 """Core layers of the serving path: RMSNorm, RoPE, GQA attention (prefill,
-per-slot decode, and decode / verify-shaped admission over the paged KV pool),
-SwiGLU MLP, embedding and LM head.
+per-slot decode and speculative verify over the dense cache or the paged KV
+pool, and the verify-shaped admission over the pool), SwiGLU MLP, embedding
+and LM head.
 
 ``nn.Module``s own the parameters (``requires_grad=False``); the arithmetic is
 in plain functions on tensors that take the module as ``p``, mirroring the
@@ -212,21 +213,26 @@ class DecodeView(NamedTuple):
     ``b_iota`` and the row each slot writes (``row``, clamped; ``in_range``
     false for a frozen slot), and the cache seen as a pool of
     ``block_size``-row blocks: the contiguous table ``tab`` (int32) and the
-    visible rows ``lens``."""
+    visible rows ``lens``; ``s_max``, the slot capacity."""
     b_iota: torch.Tensor
     row: torch.Tensor
     in_range: torch.Tensor
     tab: torch.Tensor
     lens: torch.Tensor
     block_size: int
+    s_max: int
 
 
 def decode_view(pos: torch.Tensor, rows: int, s_max: Optional[int] = None,
                 block_size: Optional[int] = None) -> DecodeView:
     """The :class:`DecodeView` of a dense cache of ``rows`` rows per slot at
     positions ``pos`` [B]: ``s_max`` (default ``rows``) is the slot capacity,
-    ``block_size`` (default ``rows``) divides ``rows``; ``tab[b, j] = b *
-    rows / block_size + j`` and ``lens = min(pos + 1, s_max)``."""
+    ``block_size`` (default ``rows``) divides ``rows``; ``lens = min(pos + 1,
+    s_max)`` and ``tab[b, j] = b * rows / block_size + j`` for the
+    ``ceil(s_max / block_size)`` blocks that hold the first ``s_max`` rows.
+    So the table, and with it the paged kernel's split plan, is the same
+    whatever spare rows the cache has past ``s_max`` (a speculative engine's
+    verify lookahead, ``model.init_slot_cache(lookahead=)``)."""
     s_max = rows if s_max is None else s_max
     bs = rows if block_size is None else block_size
     if rows % bs or not 0 < s_max <= rows:
@@ -234,13 +240,14 @@ def decode_view(pos: torch.Tensor, rows: int, s_max: Optional[int] = None,
                          f"in blocks of {bs} rows")
     B, dev = pos.shape[0], pos.device
     b_iota = torch.arange(B, device=dev)
-    mb = rows // bs
-    tab = (b_iota[:, None] * mb
-           + torch.arange(mb, device=dev)[None, :]).to(torch.int32)
+    tab = (b_iota[:, None] * (rows // bs)
+           + torch.arange(-(-s_max // bs), device=dev)[None, :]).to(
+               torch.int32)
     return DecodeView(b_iota=b_iota,
                       row=pos.clamp(max=s_max - 1).to(torch.long),
                       in_range=(pos < s_max)[:, None, None], tab=tab,
-                      lens=torch.clamp(pos + 1, max=s_max), block_size=bs)
+                      lens=torch.clamp(pos + 1, max=s_max), block_size=bs,
+                      s_max=s_max)
 
 
 def attn_decode_slots(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -293,6 +300,80 @@ def attn_decode_slots(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     out = ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
     return out, cache_k, cache_v
+
+
+def _verify_qkv(cfg: ModelConfig, p: Attention, xs, pos: torch.Tensor,
+                inv_freq):
+    """(q, k, v) of each position block ``xs[t]`` ``[B, 1, d]`` at
+    positions ``pos + t``: the decode step's own calls at its own shapes."""
+    out = []
+    for t, x in enumerate(xs):
+        q, k, v = _qkv(cfg, p, x)
+        if inv_freq is not None:
+            positions = (pos + t)[:, None]
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
+        out.append((q, k, v))
+    return out
+
+
+def _verify_out(cfg: ModelConfig, p: Attention, out: torch.Tensor, xs):
+    """The attention rows ``out`` ``[T * B, nq, hd]`` (position-major)
+    through ``wo``, one position block at a time, as the decode step
+    projects its ``[B, 1, nq * hd]``."""
+    T, B = len(xs), xs[0].shape[0]
+    out = out.reshape(T, B, 1, cfg.n_heads * cfg.hd)
+    return [ein("bsh,hd->bsd", out[t], p.wo).to(x.dtype)
+            for t, x in enumerate(xs)]
+
+
+def attn_verify_slots(cfg: ModelConfig, p: Attention, xs,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      pos: torch.Tensor, *, inv_freq,
+                      view: Optional[DecodeView] = None):
+    """T-token attention with PER-SLOT positions (speculative verify), the
+    multi-position sibling of :func:`attn_decode_slots`, whose rows it
+    reproduces bitwise.
+
+    ``xs``: T position blocks ``[B, 1, d]`` (the verify's activations laid
+    out position-major, row ``t * B + b``): slot b's token t sits at
+    position ``pos[b] + t``. Each block runs the decode step's projections
+    and RoPE at the decode step's shape, and its K/V row is written to row
+    ``pos[b] + t`` of ``cache_k`` / ``cache_v`` ``[B, rows, nkv, hd]`` (IN
+    PLACE; a row at or past ``rows`` is not written, the decode step's
+    masked write). Then ONE ``ops.paged_attention`` call attends all ``T *
+    B`` query rows over the cache's contiguous table (``view``, the step's
+    :func:`decode_view`), row ``(t, b)`` with slot b's table row and ``lens
+    = min(pos[b] + t + 1, s_max)``: the kernel's rows do not depend on the
+    other rows of the call (its split plan reads the table's shape only), so
+    every row is the decode row of its position. Rows past ``s_max`` are
+    never visible: a speculative engine gives its cache ``spec_k + 1``
+    spare rows (``model.init_slot_cache(lookahead=)``), so every verify
+    write lands in a row of its own. Returns T blocks ``[B, 1, d]``."""
+    from repro_torch.kernels import ops
+    B, rows = xs[0].shape[0], cache_k.shape[1]
+    if view is None:
+        view = decode_view(pos, rows)
+    qkv = _verify_qkv(cfg, p, xs, pos, inv_freq)
+    b_iota = view.b_iota
+    for t, (_, k, v) in enumerate(qkv):
+        at = pos + t
+        row = at.clamp(max=rows - 1).to(torch.long)
+        ok = (at < rows)[:, None, None]
+        cache_k[b_iota, row] = torch.where(ok, k[:, 0].to(cache_k.dtype),
+                                           cache_k[b_iota, row])
+        cache_v[b_iota, row] = torch.where(ok, v[:, 0].to(cache_v.dtype),
+                                           cache_v[b_iota, row])
+    T = len(xs)
+    q = torch.stack([q[:, 0] for q, _, _ in qkv])            # [T, B, nq, hd]
+    lens = torch.cat([torch.clamp(pos + t + 1, max=view.s_max)
+                      for t in range(T)])
+    pool = (B * rows // view.block_size, view.block_size) + tuple(
+        cache_k.shape[2:])
+    out = ops.paged_attention(q.reshape((T * B,) + q.shape[2:]),
+                              cache_k.view(pool), cache_v.view(pool),
+                              view.tab.repeat(T, 1), lens)
+    return _verify_out(cfg, p, out, xs)
 
 
 def _paged_write(pool: torch.Tensor, scales: Optional[torch.Tensor],
@@ -366,6 +447,41 @@ def attn_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         out = ops.paged_attention_q(q1, kp, vp, ks, vs, tab, lens)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
+
+
+def attn_verify_slots_paged(cfg: ModelConfig, p: Attention, xs,
+                            kp: torch.Tensor, vp: torch.Tensor,
+                            ks: Optional[torch.Tensor],
+                            vs: Optional[torch.Tensor], tab: torch.Tensor,
+                            pos: torch.Tensor, *, inv_freq):
+    """:func:`attn_verify_slots` over the paged KV pool (pools updated IN
+    PLACE), the multi-position sibling of :func:`attn_decode_paged`: each
+    position block ``xs[t]`` ``[B, 1, d]`` writes its K/V row through the
+    slot's table as the decode step writes (positions at or past ``s_max``
+    go to the sink block), then ONE ``ops.paged_attention`` /
+    ``ops.paged_attention_q`` call attends all ``T * B`` query rows, row
+    ``(t, b)`` with slot b's table row and ``lens = min(pos[b] + t + 1,
+    s_max)``. Not :func:`attn_verify_paged`: that is the admission
+    forward, whose flash attention gives a row other bits than the decode
+    kernel. Returns T blocks ``[B, 1, d]``."""
+    from repro_torch.kernels import ops
+    nb, bs = kp.shape[0] - 1, kp.shape[1]
+    qkv = _verify_qkv(cfg, p, xs, pos, inv_freq)
+    for t, (_, k, v) in enumerate(qkv):
+        blk, r = _paged_rows(tab, pos + t, nb, bs)
+        _paged_write(kp, ks, blk, r, k[:, 0])
+        _paged_write(vp, vs, blk, r, v[:, 0])
+    T, B = len(xs), xs[0].shape[0]
+    q = torch.stack([q[:, 0] for q, _, _ in qkv]).reshape(
+        (T * B,) + qkv[0][0].shape[2:])
+    lens = torch.cat([torch.clamp(pos + t + 1, max=tab.shape[1] * bs)
+                      for t in range(T)])
+    tabs = tab.repeat(T, 1)
+    if ks is None:
+        out = ops.paged_attention(q, kp, vp, tabs, lens)
+    else:
+        out = ops.paged_attention_q(q, kp, vp, ks, vs, tabs, lens)
+    return _verify_out(cfg, p, out, xs)
 
 
 def attn_verify_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,

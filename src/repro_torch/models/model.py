@@ -13,9 +13,10 @@ continuous batching (dense / moe families).
   admit_slots_paged(cfg, model, cache, tokens, lengths, slots, pos0)
                                                        -> (logits, cache)
   decode_step_slots(cfg, model, cache, token, active)  -> (logits, cache)
+  verify_step_slots(cfg, model, cache, tokens)         -> (logits, cache)
 
-``decode_step_slots`` serves both layouts: a cache with ``"kp"`` is the paged
-pool.
+``decode_step_slots`` and ``verify_step_slots`` serve both layouts: a cache
+with ``"kp"`` is the paged pool.
 
 The KV cache is updated IN PLACE (the reference returns new arrays): the
 dict handed in is the dict handed back, and every tensor in it keeps its
@@ -160,22 +161,25 @@ def loss(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
 
 
 def init_slot_cache(cfg: ModelConfig, n_slots: int, s_max: int,
-                    device, block_size: int = 16) -> Dict[str, torch.Tensor]:
+                    device, block_size: int = 16,
+                    lookahead: int = 0) -> Dict[str, torch.Tensor]:
     """Persistent KV cache of the continuous-batching engine: one row per
     serving slot, ``pos`` a PER-SLOT length vector.
 
-    ``k`` / ``v``: ``[L, n_slots, rows, nkv, hd]`` with ``rows`` = ``s_max``
-    rounded up to a multiple of ``block_size``: decode attends the cache as a
-    pool of ``block_size``-row blocks through the paged kernel
+    ``k`` / ``v``: ``[L, n_slots, rows, nkv, hd]`` with ``rows`` = ``s_max +
+    lookahead`` rounded up to a multiple of ``block_size``: decode attends
+    the cache as a pool of ``block_size``-row blocks through the paged kernel
     (``layers.attn_decode_slots``), the paged layout's block size keeping
     dense and paged decode one computation. Rows past ``s_max`` are never
-    visible. ``s_max`` and ``kv_block`` ride along as 0-d int tensors on the
-    host (read without a device sync)."""
+    visible; ``lookahead`` spare rows take a speculative verify's writes
+    past the committed stream (``spec_k + 1`` in a speculative engine), each
+    in a row of its own. ``s_max`` and ``kv_block`` ride along as 0-d int
+    tensors on the host (read without a device sync)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"slotted serving is token-only (dense/moe), not {cfg.family}")
     dt = cfg.param_dtype
-    rows = -(-s_max // block_size) * block_size
+    rows = -(-(s_max + lookahead) // block_size) * block_size
     shape = (cfg.n_layers, n_slots, rows, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
@@ -390,3 +394,55 @@ def decode_step_slots(cfg: ModelConfig, model: Model,
     x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
     logits = L.lm_head(cfg, model.embed, x)[:, 0]
     return logits, cache
+
+
+@torch.inference_mode()
+def verify_step_slots(cfg: ModelConfig, model: Model,
+                      cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                      consts: Optional[SlotConsts] = None):
+    """Multi-position forward across all serving slots (speculative
+    verify); the cache is updated IN PLACE, ``pos`` is NOT advanced.
+
+    tokens: ``[B, T]`` integer, slot b's last committed token followed by
+    its draft proposals, at positions ``pos[b] .. pos[b] + T - 1``: their
+    K/V rows are written (dense cache, or the paged pool in bf16 or int8;
+    both stacks of a split model) and every position is scored. How many of
+    the T positions become committed is the acceptance rule's decision
+    (``serving.spec``), which moves ``pos``. ``consts``: the cache's
+    :func:`slot_consts`.
+
+    The contract: the logits of ``(b, t)`` and the K/V rows written are
+    BITWISE what :func:`decode_step_slots` computes when fed the same tokens
+    one position at a time, on the card and on the CPU. The activations run
+    position-major: T blocks ``[B, 1, d]``, each through the decode step's
+    own calls at the decode step's shapes (embedding, norms, projections,
+    RoPE, router, LM head: a library product or a reduction may give a row
+    other bits at another row count), while the hand-written kernels, whose
+    rows do not depend on the other rows of a call, take all ``T * B`` rows
+    in one launch each: the paged attention kernel with per-row ``lens``
+    (``layers.attn_verify_slots``, ``attn_verify_slots_paged``) and the
+    grouped MoE kernel (``moe.moe_apply_rows``; decode runs the gather
+    kernel, and gather == grouped bitwise). Returns (logits ``[B, T, V]``
+    fp32, cache)."""
+    consts = slot_consts(cfg, cache) if consts is None else consts
+    inv_freq = consts.inv_freq
+    xs = [L.embed_apply(model.embed, tokens[:, t:t + 1])
+          for t in range(tokens.shape[1])]
+    pos = cache["pos"]
+    if "kp" in cache:                                  # the paged pool
+        xs = _paged_forward(cfg, model, cache, xs, T.stack_verify_slots_paged,
+                            cache["tab"][:pos.shape[0]], pos, inv_freq)
+    else:
+        view = L.decode_view(pos, cache["k"].shape[2], consts.s_max,
+                             consts.kv_block)
+        lo = 0
+        for blocks in model.stacks():
+            hi = lo + len(blocks)
+            xs = T.stack_verify_slots(cfg, blocks, xs, cache["k"][lo:hi],
+                                      cache["v"][lo:hi], pos,
+                                      inv_freq=inv_freq, view=view)
+            lo = hi
+    logits = [L.lm_head(cfg, model.embed,
+                        L.rmsnorm(model.final_ln, x, cfg.norm_eps))[:, 0]
+              for x in xs]
+    return torch.stack(logits, dim=1), cache

@@ -329,3 +329,37 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
                            m.n_experts).to(F32).sum(dim=(0, 1))
         return MoEOutput(y, aux, x, counts, idx)
     return MoEOutput(y, aux)
+
+
+def moe_apply_rows(cfg: ModelConfig, p: MoE, xs):
+    """The serving MoE layer (:func:`moe_apply` with ``need_aux=False``) of
+    a speculative verify's T position blocks ``xs[t]`` ``[B, 1, d]``.
+
+    Each block is routed by its own :func:`route_infer` call, the decode
+    step's call at the decode step's shape: the fp32 router product, the
+    top-k and the softmax over k may give a row other bits at another row
+    count. All ``T * B`` rows (position-major) then go through ONE grouped
+    kernel launch (:func:`_moe_ragged`): the kernels compute a row alone,
+    and gather == grouped bitwise, so each row is the decode step's.
+    Capacity dispatch (``"dense"``) mixes the rows of a group, so under it
+    each block runs :func:`moe_apply` as the decode step does. Returns T
+    blocks ``[B, 1, d]``."""
+    m = cfg.moe
+    if m.dispatch == "dense":
+        return [moe_apply(cfg, p, x, need_aux=False).y for x in xs]
+    if m.ep_axis is not None or m.ep_degree > 1:
+        raise NotImplementedError(
+            "expert-parallel dispatch (ep_axis / ep_degree) is not ported yet: "
+            "it comes with the mesh slice")
+    B, _, d = xs[0].shape
+    k = m.top_k
+    routed = [route_infer(cfg, p, x) for x in xs]
+    w = torch.cat([wt.reshape(B, k) for wt, _ in routed])
+    ridx = torch.cat([p.remap[it.to(torch.long)].reshape(B, k)
+                      for _, it in routed])
+    xf = torch.cat([x.reshape(B, d) for x in xs])
+    ys = list(_moe_ragged(cfg, p, xf, w, ridx).reshape(
+        len(xs), B, 1, d).unbind(0))
+    if m.n_shared_experts:
+        ys = [y + mlp_apply(p.shared, x) for y, x in zip(ys, xs)]
+    return ys

@@ -1,5 +1,6 @@
 """Decoder-only layer stacks (dense MLP or MoE blocks): the full-sequence
-forward with calibration capture, and the serving path.
+forward with calibration capture, and the serving path (prefill, decode and
+speculative verify).
 
 The reference scans stacked ``[L, ...]`` parameters; here a stack is a Python
 sequence of :class:`Block` modules and the scan is a loop.
@@ -112,6 +113,47 @@ def stack_decode_slots(cfg: ModelConfig, blocks: Sequence[Block],
     return h, cache_k, cache_v
 
 
+def _verify_layers(cfg: ModelConfig, blocks: Sequence[Block], xs, attn):
+    """The layer loop of a verify forward over position blocks ``xs[t]``
+    ``[B, 1, d]``: every norm and residual at the decode step's shape, the
+    attention ``attn(i, p, hn)`` (T blocks in, T out) and the FFN over all
+    T * B rows (:func:`_ffn_rows`)."""
+    eps = cfg.norm_eps
+    for i, p in enumerate(blocks):
+        hn = [L.rmsnorm(p.ln1, h, eps) for h in xs]
+        xs = [h + a for h, a in zip(xs, attn(i, p.attn, hn))]
+        hn = [L.rmsnorm(p.ln2, h, eps) for h in xs]
+        xs = [h + y for h, y in zip(xs, _ffn_rows(cfg, p, hn))]
+    return xs
+
+
+def _ffn_rows(cfg: ModelConfig, p: Block, hn):
+    """The FFN of T position blocks: an MoE layer routes each block as the
+    decode step does and runs all T * B rows through one grouped kernel
+    launch (``moe.moe_apply_rows``); a dense MLP runs block by block."""
+    if cfg.moe is not None:
+        return M.moe_apply_rows(cfg, p.moe, hn)
+    return [L.mlp_apply(p.mlp, h) for h in hn]
+
+
+def stack_verify_slots(cfg: ModelConfig, blocks: Sequence[Block], xs,
+                       cache_k: torch.Tensor, cache_v: torch.Tensor,
+                       pos: torch.Tensor, *, inv_freq,
+                       view: Optional[L.DecodeView] = None):
+    """T-token forward with per-slot positions (speculative verify) over
+    the dense slot cache, the multi-position sibling of
+    :func:`stack_decode_slots`. ``xs``: T position blocks ``[B, 1, d]``
+    (``layers.attn_verify_slots``); cache_k/v ``[L, B, rows, nkv, hd]``
+    updated IN PLACE; ``view``: the step's ``layers.decode_view``. Every
+    row is the decode step's row of its position, bitwise. Returns T blocks
+    ``[B, 1, d]``."""
+    if view is None:
+        view = L.decode_view(pos, cache_k.shape[2])
+    return _verify_layers(cfg, blocks, xs, lambda i, p, hn: L.attn_verify_slots(
+        cfg, p, hn, cache_k[i], cache_v[i], pos, inv_freq=inv_freq,
+        view=view))
+
+
 def _sl(a: Optional[torch.Tensor], i: int) -> Optional[torch.Tensor]:
     return None if a is None else a[i]
 
@@ -144,3 +186,14 @@ def stack_verify_paged(cfg: ModelConfig, blocks: Sequence[Block],
     ``layers.attn_verify_paged``). x: ``[B, T, d]``. Returns y."""
     return _stack_paged(L.attn_verify_paged, cfg, blocks, x, kp, vp, ks, vs,
                         tab, pos, inv_freq=inv_freq)
+
+
+def stack_verify_slots_paged(cfg: ModelConfig, blocks: Sequence[Block], xs,
+                             kp, vp, ks, vs, tab, pos, *, inv_freq):
+    """:func:`stack_verify_slots` over paged KV pools (the pools and the
+    table as :func:`stack_decode_paged`; ``layers.attn_verify_slots_paged``).
+    Returns T blocks ``[B, 1, d]``."""
+    return _verify_layers(cfg, blocks, xs, lambda i, p, hn:
+                          L.attn_verify_slots_paged(
+                              cfg, p, hn, kp[i], vp[i], _sl(ks, i), _sl(vs, i),
+                              tab, pos, inv_freq=inv_freq))

@@ -45,6 +45,18 @@
   with what the capture recorded. A failed capture raises. The graphs are
   freed with the engine (``graph_stats`` reports them). On the CPU the same
   step bodies run eagerly on the same buffers.
+* **Speculative decoding.** With ``draft_cfg`` / ``draft_params`` (a
+  MergeMoE compression of the served model, e.g. from
+  ``launch.compress.run``) the engine runs draft / verify rounds
+  (``serving.spec``): the draft proposes ``spec_k`` tokens per slot, the
+  full model verifies them in one multi-position forward, and acceptance and
+  rollback run on the device; every committed token is a full-model sample,
+  so the tokens are the plain engine's at any temperature. The draft has a
+  cache of its own (dense, or a paged pool of the same geometry on the one
+  allocator table), admission prefills both models and samples the first
+  token from the full model's logits, a request reserves ``spec_k`` rows of
+  lookahead (``prompt + max_new + spec_k <= s_max + 1``), and on the card
+  each round is one replay of the ``"spec round"`` graph.
 * **Stop conditions.** Per-request ``max_new_tokens`` and optional
   ``eos_token``, evaluated on the device inside the block; freed slots admit
   at the next block boundary.
@@ -54,7 +66,7 @@
 
 ``EngineConfig`` keeps every field of the reference's. The values this port
 does not serve yet RAISE ``NotImplementedError`` at construction, never
-silently degrade: ``spec_draft`` (or a draft model), ``mesh``,
+silently degrade: ``spec_draft`` (a draft checkpoint directory), ``mesh``,
 ``snapshot_every_steps > 0``, a fault plan, and
 ``trace_guard`` other than ``"off"`` (there is no jit whose retraces a guard
 could count, so the port's default is ``"off"``; the reference's is
@@ -182,12 +194,13 @@ class EngineConfig:
     snapshot_dir: Optional[str] = None
 
 
-def _unsupported(ec: EngineConfig, faults, draft_cfg, draft_params) -> None:
+def _unsupported(ec: EngineConfig, faults) -> None:
     """Raise for every EngineConfig value this slice does not serve."""
     later = []
-    if ec.spec_draft is not None or draft_cfg is not None \
-            or draft_params is not None:
-        later.append("speculative decoding (spec_draft / draft model)")
+    if ec.spec_draft is not None:
+        later.append("spec_draft (loading a speculative draft from a "
+                     "checkpoint directory comes with the checkpoint slice, "
+                     "ROADMAP A12; pass draft_cfg / draft_params)")
     if ec.mesh is not None:
         later.append("mesh serving (expert-parallel slice)")
     if ec.snapshot_every_steps:
@@ -222,24 +235,33 @@ class Engine:
                 "PyTorch path")
         if ec.snapshot_every_steps is None:    # None == 0 == disabled
             ec.snapshot_every_steps = 0
-        _unsupported(ec, faults, draft_cfg, draft_params)
-        cfg = cfg if cfg is not None else (
+        _unsupported(ec, faults)
+        cfg = self._serve_dispatch(cfg if cfg is not None else (
             configs.get(ec.arch).reduced() if ec.reduced
-            else configs.get(ec.arch))
-        if cfg.moe is not None and ec.dispatch is not None:
-            moe = dataclasses.replace(cfg.moe, dispatch=ec.dispatch)
-            if ec.dispatch == "gather":
-                # the gather ceiling must cover the decode token count
-                # (T = n_slots) or big-slot engines would silently fall back
-                # to ragged on every decode step
-                moe = dataclasses.replace(
-                    moe, gather_max_tokens=max(moe.gather_max_tokens,
-                                               ec.n_slots))
-            cfg = cfg.replace(moe=moe)
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"continuous batching serves token-only families "
-                f"(dense/moe), not {cfg.family}")
+            else configs.get(ec.arch)))
+        # speculative decoding: the draft, given in-process
+        self.spec = draft_params is not None
+        if self.spec:
+            if draft_cfg is None:
+                raise ValueError("draft_params given without draft_cfg")
+            draft_cfg = self._serve_dispatch(draft_cfg)
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != full model vocab "
+                    f"{cfg.vocab_size}: the draft must be a compression of "
+                    f"the served model, not a different tokenizer")
+            if ec.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if draft_params.device.type != self.device.type:
+                raise ValueError(f"draft_params live on {draft_params.device}, "
+                                 f"the engine on {self.device}")
+        self.draft_cfg = draft_cfg if self.spec else None
+        self.draft_params = draft_params if self.spec else None
+        for c in (cfg, self.draft_cfg):
+            if c is not None and c.family not in ("dense", "moe"):
+                raise NotImplementedError(
+                    f"continuous batching serves token-only families "
+                    f"(dense/moe), not {c.family}")
         if ec.decode_block < 1:
             raise ValueError("decode_block must be >= 1")
         if ec.numeric_sentinel not in ("off", "count", "strict"):
@@ -268,11 +290,15 @@ class Engine:
                              f"on {self.device}")
 
         # host<->device crossing telemetry: device_calls counts step calls
-        # (on the card a block's replay, or an admission group's replays,
-        # one per row), host_syncs counts device->host readbacks, tokens_out
-        # counts generated tokens
+        # (on the card a block's or a round's replay, or an admission
+        # group's replays, one per row and model), host_syncs counts
+        # device->host readbacks, tokens_out counts generated tokens;
+        # tokens_drafted / accepted / rolled_back are the speculative
+        # rounds' bookkeeping (zero outside spec mode)
         self.counters: Dict[str, int] = {
-            "device_calls": 0, "host_syncs": 0, "tokens_out": 0, "shed": 0}
+            "device_calls": 0, "host_syncs": 0, "tokens_out": 0, "shed": 0,
+            "tokens_drafted": 0, "tokens_accepted": 0,
+            "tokens_rolled_back": 0}
         self._buckets = tuple(sorted(set(int(b) for b in ec.prefill_buckets)))
         # the ONLY prompt pad lengths admission may use; bucket_for fails
         # closed on non-membership
@@ -286,14 +312,24 @@ class Engine:
             self._alloc = PagedAllocator(n_slots=ec.n_slots, n_blocks=n_blocks,
                                          block_size=ec.kv_block,
                                          s_max=ec.s_max)
-            self.cache = MD.init_paged_cache(
-                cfg, ec.n_slots, ec.s_max, self.device, n_blocks=n_blocks,
-                block_size=ec.kv_block, kv_dtype=ec.kv_dtype)
             self._tab_dirty = True
+
+            def new_cache(c):
+                return MD.init_paged_cache(
+                    c, ec.n_slots, ec.s_max, self.device, n_blocks=n_blocks,
+                    block_size=ec.kv_block, kv_dtype=ec.kv_dtype)
         else:
-            self.cache = MD.init_slot_cache(cfg, ec.n_slots, ec.s_max,
-                                            self.device,
-                                            block_size=ec.kv_block)
+            def new_cache(c):
+                # a verify writes rows pos .. pos + spec_k: spare rows past
+                # s_max take them, each in a row of its own, never visible
+                return MD.init_slot_cache(
+                    c, ec.n_slots, ec.s_max, self.device,
+                    block_size=ec.kv_block,
+                    lookahead=ec.spec_k + 1 if self.spec else 0)
+        self.cache = new_cache(cfg)
+        # the draft's cache: a dense cache, or a pool of the same geometry
+        # on the one allocator table (_sync_tab ships it to both)
+        self.cache_draft = new_cache(self.draft_cfg) if self.spec else None
         self._build_steps()
 
         self._slot_req: List[Optional[Request]] = [None] * ec.n_slots
@@ -376,6 +412,15 @@ class Engine:
                 f"than slot capacity s_max={self.ec.s_max} (the final "
                 f"sampled token occupies no row, so the bound is "
                 f"prompt + max_new <= s_max + 1)")
+        # a verify writes spec_k lookahead rows past the committed stream
+        if self.spec and (prompt.size + max_new_tokens + self.ec.spec_k
+                          > self.ec.s_max + 1):
+            raise ERR.RequestValidationError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
+                f"+ spec_k ({self.ec.spec_k}) exceeds s_max + 1 = "
+                f"{self.ec.s_max + 1}: speculative verify needs spec_k KV "
+                f"rows of lookahead headroom past the committed stream; "
+                f"shorten the request, lower spec_k, or raise s_max")
 
     def submit(self, prompt, max_new_tokens: int, eos_token: int | None = None,
                arrival_time: float = 0.0, uid: int | None = None,
@@ -452,6 +497,22 @@ class Engine:
         self.counters["shed"] += 1
         self._inflight.discard(req.uid)
 
+    def _serve_dispatch(self, cfg):
+        """``cfg`` with the engine's MoE dispatch (a dense-family config
+        comes back as it is)."""
+        ec = self.ec
+        if cfg.moe is None or ec.dispatch is None:
+            return cfg
+        moe = dataclasses.replace(cfg.moe, dispatch=ec.dispatch)
+        if ec.dispatch == "gather":
+            # the gather ceiling must cover the decode token count (T =
+            # n_slots) or big-slot engines would silently fall back to
+            # ragged on every decode step
+            moe = dataclasses.replace(
+                moe, gather_max_tokens=max(moe.gather_max_tokens,
+                                           ec.n_slots))
+        return cfg.replace(moe=moe)
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
@@ -471,7 +532,9 @@ class Engine:
     def _build_steps(self) -> None:
         """The step callables and the static decode inputs ``_in``. Every
         step gets the cache's ``slot_consts``, built once here; on the card
-        (``_graph_maker``) each is wrapped in its graph."""
+        (``_graph_maker``) each is wrapped in its graph. Spec mode adds the
+        draft's admission, the dual admission ``_admit_spec`` and the round
+        ``_decode_spec``."""
         cfg, ec, n = self.cfg, self.ec, self.ec.n_slots
         consts = MD.slot_consts(cfg, self.cache)
         self._in = {name: torch.zeros(shape, dtype=dtype, device=self.device)
@@ -505,6 +568,35 @@ class Engine:
                              "decode block": multi}
         self._admit_step, self._decode, self._decode_multi = \
             admit, decode, multi
+        if self.spec:
+            self._build_spec_steps(consts, new_graph)
+
+    def _build_spec_steps(self, consts, new_graph) -> None:
+        cfg, dcfg, ec = self.cfg, self.draft_cfg, self.ec
+        dconsts = MD.slot_consts(dcfg, self.cache_draft)
+        paged = self._alloc is not None
+        admit_d = (ST.make_slot_admit_paged if paged else ST.make_slot_admit)(
+            dcfg, dconsts)
+        round_ = ST.make_slot_decode_spec(cfg, dcfg, ec.spec_k,
+                                          ec.temperature, consts, dconsts)
+        if new_graph is not None:
+            row = (ST.admit_row_paged if paged else ST.admit_row)(dcfg,
+                                                                  dconsts)
+            admit_d = ST.GraphedAdmit(row, self.draft_params, self.cache_draft,
+                                      lambda: new_graph("admit"),
+                                      name="admit draft")
+            b = self._in
+            round_ = ST.GraphedRound(
+                round_, self.params, self.draft_params, self.cache,
+                self.cache_draft, (b["token"], b["active"], b["remaining"],
+                                   b["eos"], b["keys"]),
+                lambda: new_graph("decode"))
+            self._graphed.update({"admit draft": admit_d,
+                                  "spec round": round_})
+        make = ST.make_slot_admit_spec_paged if paged \
+            else ST.make_slot_admit_spec
+        self._admit_spec = make(cfg, dcfg, steps=(self._admit_step, admit_d))
+        self._decode_spec = round_
 
     def _load(self, name: str, a: np.ndarray) -> torch.Tensor:
         """Copy a host array into the static input buffer ``name``."""
@@ -514,11 +606,13 @@ class Engine:
 
     def graph_stats(self) -> Dict[str, dict]:
         """The CUDA graphs this engine holds, by name (``"decode block"``,
-        ``"decode step"``, ``"admit <pad shape>"``): warm-up, capture and
+        ``"decode step"``, ``"admit <pad shape>"``; in spec mode ``"spec
+        round"`` and ``"admit draft <pad shape>"``): warm-up, capture and
         instantiate seconds (paid at the graph's first use), replays, the
         launches one replay credits and the bytes the capture added to the
         pool. Empty off the card."""
-        return {key if name == "admit" else name: g.stats()
+        return {key if isinstance(graphed, ST.GraphedAdmit) else name:
+                g.stats()
                 for name, graphed in self._graphed.items()
                 for key, g in graphed.graphs.items()}
 
@@ -603,6 +697,66 @@ class Engine:
         self._step_count += K
         return finished
 
+    def step_spec(self, now: float | None = None) -> List[Request]:
+        """Admit due requests, then run ONE draft / verify round
+        (``serving.spec``): ``spec_k`` draft decode steps, one full-model
+        verify forward, acceptance and rollback, in one device call (on the
+        card one replay of the ``"spec round"`` graph) with one readback of
+        the ``[K+1, B, 3]`` block: rows 0..K-1 are (token, emitted, finite)
+        as in :meth:`step_block`, row K is (accepted drafts, drafted, 1).
+        Returns finished requests. The step clock advances by ``spec_k`` per
+        round."""
+        now = self._now() if now is None else now
+        finished = self._admit(now)
+        K = self.ec.spec_k
+        if not self._active.any():
+            self._step_count += 1
+            return finished
+        n = self.ec.n_slots
+        rem = np.zeros((n,), np.int32)
+        eos = np.full((n,), -1, np.int32)
+        slots = np.flatnonzero(self._active)
+        for s in slots:
+            req = self._slot_req[s]
+            rem[s] = req.max_new_tokens - len(req.out_tokens)
+            eos[s] = -1 if req.eos_token is None else req.eos_token
+        self._sync_tab()
+        block, _, self.cache, self.cache_draft = self._decode_spec(
+            self.params, self.draft_params, self.cache, self.cache_draft,
+            self._load("token", self._last_tok),
+            self._load("active", self._active), self._load("remaining", rem),
+            self._load("eos", eos), self._load("keys", self._slot_keys))
+        self.counters["device_calls"] += 1
+        block_np = block.cpu().numpy()          # ONE readback
+        self.counters["host_syncs"] += 1
+        for s in slots:
+            req = self._slot_req[s]
+            for j in range(K):
+                if not block_np[j, s, 1]:
+                    break
+                t_j = now + j if self.ec.clock == "steps" else self._now()
+                self._check_finite(block_np[j, s, 2:3], [s])
+                tok = int(block_np[j, s, 0])
+                req.out_tokens.append(tok)
+                self.counters["tokens_out"] += 1
+                self._last_tok[s] = tok
+                if self._is_done(req, tok):
+                    self._evict(s, t_j)
+                    finished.append(req)
+                    break
+            n_match, drafted = int(block_np[K, s, 0]), int(block_np[K, s, 1])
+            self.counters["tokens_drafted"] += drafted
+            self.counters["tokens_accepted"] += n_match
+            self.counters["tokens_rolled_back"] += drafted - n_match
+        self._step_count += K
+        return finished
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the full model accepted so far."""
+        return (self.counters["tokens_accepted"]
+                / max(self.counters["tokens_drafted"], 1))
+
     def run(self, requests: Sequence[Request] | None = None) -> List[Request]:
         """Drive until every pending/submitted request completes."""
         if requests:
@@ -620,7 +774,12 @@ class Engine:
                 seen.add(r.uid)
             for r in requests:
                 self._enqueue(r)
-        advance = self.step_block if self.ec.decode_block > 1 else self.step
+        if self.spec:
+            advance = self.step_spec
+        elif self.ec.decode_block > 1:
+            advance = self.step_block
+        else:
+            advance = self.step
         done: List[Request] = []
         while not self.idle:
             done.extend(advance())
@@ -657,18 +816,23 @@ class Engine:
 
     def _sync_tab(self) -> None:
         """Ship the allocator's host block table to the device when it
-        changed: an explicit copy issued before a step call, never inside
-        one."""
+        changed (to both pools in spec mode): an explicit copy issued before
+        a step call, never inside one."""
         if self._alloc is None or not self._tab_dirty:
             return
-        self.cache["tab"].copy_(torch.from_numpy(self._alloc.tab))
+        tab = torch.from_numpy(self._alloc.tab)
+        self.cache["tab"].copy_(tab)
+        if self.cache_draft is not None:
+            self.cache_draft["tab"].copy_(tab)
         self._tab_dirty = False
 
     def _reserve_rows(self, req: Request) -> int:
         """KV rows a request owns for its whole lifetime: every position it
-        writes (``prompt + max_new - 1``), reserved in full at admission so
-        decode never allocates."""
-        return req.n_prompt + req.max_new_tokens - 1
+        writes (``prompt + max_new - 1``), plus ``spec_k`` verify-lookahead
+        rows in spec mode, reserved in full at admission so decode and
+        verify never allocate and rollback only rewinds ``pos``."""
+        return (req.n_prompt + req.max_new_tokens - 1
+                + (self.ec.spec_k if self.spec else 0))
 
     def _now(self) -> float:
         if self.ec.clock == "steps":
@@ -799,10 +963,16 @@ class Engine:
             self._slot_keys[slot] = TF.fold_in(self._key_base,
                                                req.uid).numpy()
         self._sync_tab()
-        paged_args = (self._dev(pos0),) if self._alloc is not None else ()
-        logits, tokens, self.cache = self._admit_step(
-            self.params, self.cache, self._dev(toks), self._dev(lengths),
-            slots, *paged_args)
+        args = (self._dev(toks), self._dev(lengths), slots) + (
+            (self._dev(pos0),) if self._alloc is not None else ())
+        if self.spec:
+            # both models prefill; the first token is the full model's
+            logits, tokens, self.cache, self.cache_draft = self._admit_spec(
+                self.params, self.draft_params, self.cache, self.cache_draft,
+                *args)
+        else:
+            logits, tokens, self.cache = self._admit_step(
+                self.params, self.cache, *args)
         self.counters["device_calls"] += 1
         if self.ec.temperature > 0.0:
             # the first token occupies position pos0 + length (the whole

@@ -128,13 +128,15 @@ def run_trace(engine, reqs, eos_for=None):
     return done
 
 
-def ref_engine(rcfg, params, **kw):
+def ref_engine(rcfg, params, draft=None, **kw):
     """A reference Engine ready to serve on this host: trace_guard off (its
     jit bookkeeping is not under test) and the activation mesh cleared (the
     host mesh's sharding constraints fail under some jax versions; clearing
-    it is harmless where they do not)."""
+    it is harmless where they do not). ``draft``: a speculative draft's
+    (cfg, params)."""
     eng = RefEngine(RefEngineConfig(trace_guard="off", **kw), cfg=rcfg,
-                    params=params)
+                    params=params, draft_cfg=draft[0] if draft else None,
+                    draft_params=draft[1] if draft else None)
     ref_numerics.set_activation_mesh(None)
     return eng
 

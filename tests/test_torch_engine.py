@@ -195,9 +195,11 @@ def test_unsupported_constructor_arguments_raise(small_model):
     pcfg, model = small_model
     with pytest.raises(NotImplementedError, match="fault plan"):
         Engine(_small(), cfg=pcfg, params=model, device="cpu", faults=object())
-    with pytest.raises(NotImplementedError, match="speculative"):
+    # a draft model given in-process is served (tests/test_torch_spec.py);
+    # its parameters without its config are refused, as by the reference
+    with pytest.raises(ValueError, match="draft_cfg"):
         Engine(_small(), cfg=pcfg, params=model, device="cpu",
-               draft_cfg=pcfg, draft_params=model)
+               draft_params=model)
     with pytest.raises(ValueError, match="kv_layout"):
         Engine(_small(kv_layout="ring"), cfg=pcfg, params=model, device="cpu")
     with pytest.raises(ValueError, match="decode_block"):
