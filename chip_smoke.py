@@ -156,6 +156,16 @@ one JSON line:
             output error on a merged layer at most M-SMoE's; the compressed
             model served in bf16, drafting for the full model (the spec
             line) and with int8 tables
+  ckpt      inside the compress phase: the compression entry point writes
+            the bf16 artifact (launch.compress.run(save_dir=)), which
+            Engine.from_checkpoint loads torch.equal to the in-memory model
+            and serves token for token as it; the full model served with
+            EngineConfig(spec_draft=<the artifact>), tokens equal to the
+            plain engine's and acceptance to the in-process draft's; then the
+            int8-table model saved, loaded and served the same way. Bytes on
+            disk, seconds to save and to load (digest included), GB/s. The
+            artifacts go to a temporary directory (its free space checked
+            first), one at a time, each deleted after its checks
   witness   (--witness-layers N only) the paged int8 pool's top-1 against the
             bf16 pool at full width and depth N, on the card and on the CPU's
             plain path, same weights and contexts
@@ -171,15 +181,19 @@ the plain version.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -1703,8 +1717,9 @@ PAGED = dict(kv_layout="paged", kv_block=KV_BLOCK)
 PAGED_INT8 = dict(PAGED, kv_dtype="int8")
 
 
-def serve(cfg, model, trace, device, draft=None, **ec_kw):
-    """Drive the trace through an Engine. Returns a dict with the tokens,
+def serve(cfg, model, trace, device, draft=None, engine=None, **ec_kw):
+    """Drive the trace through an Engine (``engine``: one already built,
+    else one of ``engine_config(**ec_kw)``). Returns a dict with the tokens,
     counters, the admission shapes and times, decode block times, kernel
     launches, the engine's paging telemetry and its CUDA graphs (on the
     card every decode block and every admitted prompt is a replay: checked
@@ -1715,9 +1730,10 @@ def serve(cfg, model, trace, device, draft=None, **ec_kw):
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as ST
     from repro_torch.serving import Engine
-    eng = Engine(engine_config(**ec_kw), cfg=cfg, params=model, device=device,
-                 draft_cfg=draft[0] if draft else None,
-                 draft_params=draft[1] if draft else None)
+    eng = engine or Engine(engine_config(**ec_kw), cfg=cfg, params=model,
+                           device=device,
+                           draft_cfg=draft[0] if draft else None,
+                           draft_params=draft[1] if draft else None)
     admits, admit_ms, block_ms = [], [], []
     admit, multi, single = eng._admit_step, eng._decode_multi, eng._decode
     cuda = torch.device(device).type == "cuda"
@@ -2364,7 +2380,7 @@ def recorded(eng) -> list:
 def caches_equal(g, e, committed_only: bool = False) -> bool:
     """Two caches bitwise, a pool's sink block excepted (sentinel writes
     land there, several on one row, in no fixed order; no table entry owns
-    it). ``committed_only``: a dense cache's K/V rows only below each slot's
+    it and no kernel reads it). ``committed_only``: a dense cache's K/V rows only below each slot's
     ``pos`` (a speculative round leaves rejected drafts past it)."""
     for name in g:
         a, b = g[name], e[name]
@@ -2379,21 +2395,6 @@ def caches_equal(g, e, committed_only: bool = False) -> bool:
     return True
 
 
-def round_rows_equal(g: torch.Tensor, e: torch.Tensor) -> bool:
-    """Two speculative rounds' ``[K+1, B, 3]`` blocks on what the engine
-    reads, bitwise: row K (accepted, drafted, 1) and the emitted lane of
-    every slot, and every lane of the slots that drafted. An idle slot of a
-    paged pool has the sentinel table row, so its draft and verify rows
-    attend the write-only sink block, which the round's sentinel writes
-    (every idle slot's K + 1 verify rows and K draft rows a layer) hit
-    several to a row in no fixed order: its candidate tokens and finite
-    flags, never emitted, are not compared."""
-    K = g.shape[0] - 1
-    live = g[K, :, 1] > 0
-    return (torch.equal(g[K], e[K]) and torch.equal(g[:K, :, 1], e[:K, :, 1])
-            and torch.equal(g[:K][:, live], e[:K][:, live]))
-
-
 def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
                    new_tokens: int = 9, draft=None, **ec_kw) -> dict:
     """A serve form (``ec_kw``; ``draft``: a speculative draft's (cfg,
@@ -2403,9 +2404,9 @@ def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
     table; a speculative engine's two caches, dense K/V rows below ``pos``)
     must be bitwise equal; at the end, every call's outputs (each admission
     group's logits and first tokens, at every pad shape the trace uses, and
-    each decode block, step or round; of a round, what ``round_rows_equal``
-    compares when the whole block is not equal, which is counted) and the
-    tokens. With 8 slots, 16
+    each decode block, step or round, a round's whole ``[K+1, B, 3]`` block:
+    an idle slot of a paged pool reads block ``n_blocks - 1``, never the
+    sink) and the tokens. With 8 slots, 16
     requests and ``new_tokens = K + 1`` each request lives one admission
     and one block."""
     from repro_torch.launch import steps as ST
@@ -2444,22 +2445,16 @@ def graph_vs_eager(cfg, model, trace, device, n_requests: int = 16,
     check(engs["eager"].idle, "graph != eager: the eager engine has work left")
     check(len(logs["graph"]) == len(logs["eager"]),
           "graph != eager: another number of step calls")
-    idle_rows_differ = 0
     for gl, el in zip(logs["graph"], logs["eager"]):
         same = gl[0] == el[0] and all(
             torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
             for a, b in zip(gl[1:], el[1:]))
-        if not same and gl[0] == el[0] == "round":
-            idle_rows_differ += 1
-            same = round_rows_equal(gl[1], el[1])
         check(same, f"graph != eager: the outputs of a {gl[0]} call "
                     f"({ec_kw})")
     tokens = {m: [list(r.out_tokens) for r in rs] for m, rs in reqs.items()}
     check(tokens["graph"] == tokens["eager"], "graph != eager: tokens")
     kinds = [entry[0] for entry in logs["graph"]]
     return dict(bitwise=True, engine_steps=steps,
-                **({"rounds_whose_idle_slot_rows_differ": idle_rows_differ}
-                   if draft is not None else {}),
                 admission_groups=kinds.count("admit"),
                 decode_calls=len(kinds) - kinds.count("admit"),
                 pad_shapes=sorted({entry[1][1] for entry in logs["graph"]
@@ -3551,6 +3546,116 @@ def in_sample_errors(model, nmodel, stream, layer: int, device) -> dict:
                 msmoe_host_solve_s=t_solve)
 
 
+# ---------------------------------------------------------------------------
+# checkpoints: the compressed artifact stored, loaded and served
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, into: list):
+    """Append the seconds of every call of ``module.name`` made inside the
+    block to ``into``."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        into.append(time.perf_counter() - t0)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def artifact_dir(need: int) -> str:
+    """A new temporary directory with room for an artifact of ``need``
+    bytes; raises, naming the need and the free space, where there is
+    not."""
+    root = tempfile.gettempdir()
+    free_b = shutil.disk_usage(root).free
+    check(free_b > need, f"ckpt: an artifact needs about {need / 1e9:.2f} GB "
+                         f"and {root} has {free_b / 1e9:.2f} GB free")
+    return tempfile.mkdtemp(prefix="artifact_", dir=root)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def model_tensors(model) -> dict:
+    out = dict(model.named_parameters())
+    out.update(model.named_buffers())
+    return out
+
+
+def artifact_check(directory, ncfg, nmodel, want_tokens, trace, device, card,
+                   save_s: float) -> dict:
+    """``Engine.from_checkpoint(directory)`` against the in-memory model:
+    every parameter and buffer ``torch.equal``, then the trace served, token
+    for token ``want_tokens`` (the in-memory model's), launch counts exact.
+    Returns the artifact's entry of the ``ckpt`` line."""
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.serving import Engine
+    load_s = []
+    with timed_calls(CKPT, "load_compressed", load_s):
+        eng = Engine.from_checkpoint(directory, ec=engine_config(),
+                                     device=device)
+    got, want = model_tensors(eng.params), model_tensors(nmodel)
+    check(got.keys() == want.keys(),
+          f"ckpt: the loaded model's tensors {sorted(got.keys() ^ want.keys())}")
+    for name, t in want.items():
+        check(got[name].dtype == t.dtype and torch.equal(got[name], t),
+              f"ckpt: {name} loaded != in memory")
+    check(eng.artifact["config"] == ncfg.to_json_dict(),
+          "ckpt: the artifact's config is not the compressed model's")
+    experts = eng.expert_weight_dtypes()
+    res = serve(eng.cfg, eng.params, trace, device, engine=eng)
+    del eng
+    free()
+    check(res["tokens"] == want_tokens,
+          f"ckpt: the loaded artifact's tokens differ from the in-memory "
+          f"model's ({top1(res['tokens'], want_tokens)} agree)")
+    check_launches(res, ncfg.n_layers,
+                   experts="int8" if "int8" in experts else "bf16")
+    disk = dir_bytes(directory)
+    return dict(card=card, bytes_on_disk=disk,
+                leaves=len(list(Path(directory).rglob("leaf_*.npy"))),
+                expert_weight_dtypes=list(experts),
+                save_s=save_s, load_s=load_s[0],
+                save_gb_per_s=disk / save_s / 1e9,
+                load_gb_per_s=disk / load_s[0] / 1e9,
+                tensors_equal=len(want), tokens_equal_in_memory=True,
+                serve=serve_summary(res, card))
+
+
+def spec_from_artifact(cfg, model, ncfg, directory, trace, device, card,
+                       totals, in_process: dict) -> dict:
+    """The full model served with ``EngineConfig(spec_draft=directory)``,
+    dense cache, greedy: tokens equal to the plain engine's, acceptance and
+    the drafted / accepted / rolled-back counters equal to the in-process
+    draft's (``in_process``: its spec_summary, same form)."""
+    plain = serve(cfg, model, trace, device)
+    res = serve(cfg, model, trace, device, spec_draft=directory,
+                spec_k=SPEC_K)
+    check_spec_launches(res, cfg.n_layers, ncfg.n_layers)
+    for name, n in res["launches"].items():
+        totals[0][name] += n
+    add_routes(totals[1], res["routes"])
+    check(res["tokens"] == plain["tokens"],
+          "ckpt: spec_draft tokens differ from the plain engine's")
+    keys = ("tokens_drafted", "tokens_accepted", "tokens_rolled_back")
+    check(res["spec"]["acceptance_rate"] == in_process["acceptance_rate"]
+          and all(res["counters"][k] == in_process["counters"][k]
+                  for k in keys),
+          f"ckpt: spec_draft acceptance {res['spec']['acceptance_rate']} != "
+          f"the in-process draft's {in_process['acceptance_rate']}")
+    return dict(**spec_summary(res, plain, card),
+                acceptance_equal_in_process=True)
+
+
 def compress_phase(args, full_cfg, device, card, trace):
     """The compression entry point at full width: calibration captured on
     the card (``CalibrationStream`` over the model's forward with the
@@ -3559,8 +3664,12 @@ def compress_phase(args, full_cfg, device, card, trace):
     held-out loss of both models; the in-sample check on the first merged
     layer; the compressed model served in bf16, then drafting for the model
     it was merged from (``spec_merged``, its ``spec`` line), then served
-    with int8 tables. Returns the launches of the compression run and of
-    the serves, by kernel and by kernel and route."""
+    with int8 tables; the ``ckpt`` line: each of the two stored,
+    loaded and served (``artifact_check``), and the bf16 one drafting from
+    its directory (``spec_from_artifact``). Returns the launches of the
+    compression run and of the serves, by kernel and by kernel and
+    route."""
+    from repro_torch.ckpt import checkpoint as CKPT
     from repro_torch.core import calibration as CAL
     from repro_torch.kernels import ops
     from repro_torch.launch import compress as LC
@@ -3570,6 +3679,15 @@ def compress_phase(args, full_cfg, device, card, trace):
     check(cfg.moe.dispatch == "dense",
           "the compression phase calibrates with the config's own dispatch")
     model, build_s = build_model(cfg, device, args.seed)
+    # the bf16 artifact takes at most 4 bytes a parameter of the full model
+    # (bf16 leaves are fp32 .npy files); the int8 one is written after it
+    # is deleted
+    need = 4 * sum(t.numel() for t in model_tensors(model).values())
+    art_root = artifact_dir(need)
+    atexit.register(shutil.rmtree, art_root, True)
+    dirs = {form: os.path.join(art_root, form) for form in ("bf16", "int8")}
+    free_disk = shutil.disk_usage(art_root).free
+    save_s = []
     calib = LC.make_batches(cfg, CALIB_BATCHES, device, CALIB_BATCH,
                             CALIB_SEQ, args.seed + 100)
     check(CALIB_BATCHES * CALIB_BATCH * CALIB_SEQ > full_cfg.moe.d_ff_expert,
@@ -3581,10 +3699,12 @@ def compress_phase(args, full_cfg, device, card, trace):
     torch.cuda.synchronize()
     t_capture = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ncfg, nmodel, report = LC.run(
-        cfg=cfg, model=model, merged_experts=M, split=split,
-        eval_batches=EVAL_BATCHES, batch=CALIB_BATCH, seq=CALIB_SEQ,
-        seed=args.seed, stream=stream, device=device)
+    with timed_calls(CKPT, "save_compressed", save_s):
+        ncfg, nmodel, report = LC.run(
+            cfg=cfg, model=model, merged_experts=M, split=split,
+            eval_batches=EVAL_BATCHES, batch=CALIB_BATCH, seq=CALIB_SEQ,
+            seed=args.seed, stream=stream, device=device,
+            save_dir=dirs["bf16"])
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = ops.launch_counts()       # just after
@@ -3614,17 +3734,29 @@ def compress_phase(args, full_cfg, device, card, trace):
     spec_totals = ({name: 0 for name in TABLE},
                    {name: dict.fromkeys(r, 0)
                     for name, r in ops.route_launch_counts().items()})
+    ckpt = {}
     for form in ("bf16", "int8"):
         if form == "int8":
             t0 = time.perf_counter()
+            merged_spec = spec_merged(cfg, model, ncfg, nmodel,
+                                      trace[:COMPRESS_REQUESTS], device, card,
+                                      spec_totals)
             emit("spec", model=cfg.name, pair="MergeMoE draft", card=card,
-                 **spec_merged(cfg, model, ncfg, nmodel,
-                               trace[:COMPRESS_REQUESTS], device, card,
-                               spec_totals),
-                 seconds=time.perf_counter() - t0)
+                 **merged_spec, seconds=time.perf_counter() - t0)
+            ckpt["spec_draft"] = spec_from_artifact(
+                cfg, model, ncfg, dirs["bf16"], trace[:COMPRESS_REQUESTS],
+                device, card, spec_totals,
+                merged_spec["forms"]["dense cache"])
+            shutil.rmtree(dirs["bf16"])
             del model
             free()
             q_s = quantize(nmodel)
+            with timed_calls(CKPT, "save_compressed", save_s):
+                CKPT.save_compressed(
+                    dirs["int8"], ncfg, nmodel,
+                    report={"experts": "int8 in every MoE layer "
+                                       "(quantize_model_experts after the "
+                                       "merge)"})
         serve(ncfg, nmodel, trace[:2], device)
         res = serve(ncfg, nmodel, trace[:COMPRESS_REQUESTS], device)
         check_launches(res, ncfg.n_layers, experts=form)
@@ -3632,8 +3764,15 @@ def compress_phase(args, full_cfg, device, card, trace):
                             else weights_gb(nmodel),
                             quantize_s=q_s if form == "int8" else None,
                             **serve_summary(res, card))
+        ckpt[form] = artifact_check(dirs[form], ncfg, nmodel, res["tokens"],
+                                    trace[:COMPRESS_REQUESTS], device, card,
+                                    save_s[-1])
+    shutil.rmtree(art_root)
     del nmodel
     free()
+    emit("ckpt", card=card, model=cfg.name, layers=cfg.n_layers,
+         merged_layers=report["layers_merged"], merged_experts=M,
+         directory_free_bytes_before=free_disk, **ckpt)
     emit("compress", card=card, model=cfg.name, layers=cfg.n_layers,
          merged_layers=report["layers_merged"], n_experts=report["n_experts"],
          merged_experts=M, calib_tokens=report["calib_tokens"],
@@ -3643,7 +3782,8 @@ def compress_phase(args, full_cfg, device, card, trace):
                       compress_total=report["t_total_s"],
                       eval_full=report["t_eval_base_s"],
                       eval_compressed=report["t_eval_compressed_s"],
-                      run=t_run, total=t_capture + t_run),
+                      run=t_run, total=t_capture + t_run,
+                      save_artifact_in_run=save_s[0]),
          loss_full=report["loss_full"],
          loss_compressed=report["loss_compressed"],
          bytes_original=report["bytes_original"],
@@ -3652,7 +3792,8 @@ def compress_phase(args, full_cfg, device, card, trace):
          peak_host_rss_gb=rss, launches=launches, in_sample=insample,
          served=served)
     total = dict(launches)
-    for res in served.values():
+    for res in [*served.values(), ckpt["bf16"]["serve"],
+                ckpt["int8"]["serve"]]:
         for name, n in res["launches"].items():
             total[name] += n
         add_routes(routes, res["routes"])

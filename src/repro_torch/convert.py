@@ -4,9 +4,10 @@
 parameters as NESTED DICTS OF NUMPY ARRAYS (fp32 copies of the leaves are
 exact for bf16 sources: bf16 -> fp32 -> bf16 round-trips) or of torch tensors
 and returns a :class:`repro_torch.models.model.Model` holding them.
-``unstacked_tree(model)`` and ``stack_tree(blocks)`` are the way back: the
-model's tensors in the reference's tree layout (the compression pipeline
-assembles a merged model as such a tree). The reference stacks a
+``reference_tree(model)`` is the way back, the model's tensors in the
+reference's tree layout, built from ``unstacked_tree(model)`` and
+``stack_tree(blocks)`` (the compression pipeline assembles a merged model
+as such a tree; checkpoints store it). The reference stacks a
 layer stack's leaves along a leading ``[L, ...]`` axis; the port keeps one
 module per layer, so every stacked leaf is sliced along axis 0. Leaf names
 inside a layer are the reference's (``attn.wq wk wv wo``, ``moe.router wg wu
@@ -76,6 +77,17 @@ def unstacked_tree(model: Model) -> dict:
     :func:`from_reference_params` takes."""
     return _nest({name: t for name, t in _targets(model).items()
                   if name.split(".")[0] not in ("stack", "stack_c")})
+
+
+def reference_tree(model: Model) -> dict:
+    """The whole model as the reference's parameter tree: the inverse of
+    :func:`from_reference_params` (each stack's leaves stacked, a copy on
+    the model's device)."""
+    tree = unstacked_tree(model)
+    for key in ("stack", "stack_c"):
+        if hasattr(model, key):
+            tree[key] = stack_tree(getattr(model, key))
+    return tree
 
 
 def _targets(model: Model) -> Dict[str, torch.Tensor]:

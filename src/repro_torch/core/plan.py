@@ -10,7 +10,8 @@ that decision explicit and serializable instead of baking one global
     plan = PLAN.for_target_ratio(cfg, target_ratio=1.6, stats=stream.stats())
 
 Plans are executed by :func:`repro_torch.core.compress.compress_with_plan`
-(the port does not persist artifacts yet).
+(``repro_torch.ckpt.checkpoint.save_compressed`` stores the plan beside the
+artifact).
 
 Strategies are self-describing classes registered with ``@register_method``;
 each declares which calibration inputs it needs (``requires`` ⊆ {"x",

@@ -11,14 +11,19 @@
     PYTHONPATH=src python -m repro_torch.launch.compress --plan plan.json
     PYTHONPATH=src python -m repro_torch.launch.compress --target-ratio 1.4
 
+    # store the compressed artifact; Engine.from_checkpoint(D) serves it
+    PYTHONPATH=src python -m repro_torch.launch.compress --save-dir D
+
 Calibration runs the port's forward with ``capture=True`` on ``--device``;
 the merge solves run in fp64 on the host. Prints the reference CLI's report
 (``repro/launch/compress.py``): bytes before / after, held-out loss of the
 full and the compressed model, merge and eval wall times, the executed
-per-layer plan. The model has random weights from ``--seed`` (loading a
-trained checkpoint, ``--save-dir`` and ``--mesh`` belong to later slices and
-raise ``NotImplementedError``); the token batches come from a NumPy
-generator, not the reference's JAX keys.
+per-layer plan. ``--save-dir`` writes the compressed model, its config,
+plan and report as a ``ckpt.checkpoint.save_compressed`` artifact (the
+reference's format). The model has random weights from ``--seed`` (loading a
+trained checkpoint and ``--mesh`` belong to later slices; ``--mesh`` raises
+``NotImplementedError``); the token batches come from a NumPy generator, not
+the reference's JAX keys.
 """
 from __future__ import annotations
 
@@ -76,11 +81,8 @@ def run(arch: str = "qwen3-moe-30b-a3b", method: str = "mergemoe",
     ``[batch, seq]`` tokens. ``stream``: a pre-fed
     :class:`~repro_torch.core.calibration.CalibrationStream` (default: one
     fed here with ``calib_batches`` batches). Returns (compressed cfg,
-    compressed model, report)."""
-    if save_dir is not None:
-        raise NotImplementedError(
-            "--save-dir (compressed checkpoints) is not ported yet: it comes "
-            "with the checkpoint slice")
+    compressed model, report). ``save_dir``: also store the compressed
+    model there (``ckpt.checkpoint.save_compressed``)."""
     if mesh_spec is not None:
         raise NotImplementedError(
             "--mesh (mesh-parallel compression) is not ported yet: it comes "
@@ -121,6 +123,11 @@ def run(arch: str = "qwen3-moe-30b-a3b", method: str = "mergemoe",
     t0 = time.perf_counter()
     comp_loss = eval_loss(new_cfg, new_model, evalb)
     t_eval_comp = time.perf_counter() - t0
+
+    if save_dir:
+        from repro_torch.ckpt import checkpoint as CKPT
+        CKPT.save_compressed(save_dir, new_cfg, new_model,
+                             plan=plan.with_mesh(None), report=info)
 
     report = {
         "arch": arch, "method": info["method"],
@@ -171,8 +178,9 @@ def main(argv=None):
                          "memory; default keeps every token)")
     ap.add_argument("--eval-batches", type=int, default=4)
     ap.add_argument("--save-dir", default=None,
-                    help="persist the compressed artifact (not ported yet: "
-                         "raises)")
+                    help="persist the compressed artifact (config, plan and "
+                         "report in its meta.json); Engine.from_checkpoint "
+                         "boots from it")
     ap.add_argument("--mesh", default=None, metavar="SPEC",
                     help="device mesh for the pipeline (not ported yet: "
                          "raises)")

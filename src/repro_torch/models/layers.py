@@ -423,7 +423,10 @@ def attn_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     The paged sibling of :func:`attn_decode_slots`: the new row is written
     through the slot's block table, then the attention runs through
     ``ops.paged_attention`` / ``ops.paged_attention_q`` (the hand-written
-    kernels on the card, the plain versions on the CPU). x: ``[B, 1, d]``;
+    kernels on the card, the plain versions on the CPU) over the pool
+    WITHOUT its sink: a sentinel table entry clips to block ``n_blocks - 1``
+    as in the reference, never to the sink, which the sentinel writes hit
+    several to a row in no fixed order. x: ``[B, 1, d]``;
     kp/vp: ``[n_blocks + 1, bs, nkv, hd]`` (int8 with ks/vs
     ``[n_blocks + 1, bs, nkv]`` fp32 scales, else ks = vs = None); tab:
     ``[B, mb]`` (sentinel ``n_blocks``); pos: ``[B]``. Returns out
@@ -442,9 +445,10 @@ def attn_decode_paged(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     lens = pos + 1
     q1 = q[:, 0].contiguous()
     if ks is None:
-        out = ops.paged_attention(q1, kp, vp, tab, lens)
+        out = ops.paged_attention(q1, kp[:-1], vp[:-1], tab, lens)
     else:
-        out = ops.paged_attention_q(q1, kp, vp, ks, vs, tab, lens)
+        out = ops.paged_attention_q(q1, kp[:-1], vp[:-1], ks[:-1], vs[:-1],
+                                    tab, lens)
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
 
@@ -459,7 +463,8 @@ def attn_verify_slots_paged(cfg: ModelConfig, p: Attention, xs,
     position block ``xs[t]`` ``[B, 1, d]`` writes its K/V row through the
     slot's table as the decode step writes (positions at or past ``s_max``
     go to the sink block), then ONE ``ops.paged_attention`` /
-    ``ops.paged_attention_q`` call attends all ``T * B`` query rows, row
+    ``ops.paged_attention_q`` call over the pool without its sink attends
+    all ``T * B`` query rows, row
     ``(t, b)`` with slot b's table row and ``lens = min(pos[b] + t + 1,
     s_max)``. Not :func:`attn_verify_paged`: that is the admission
     forward, whose flash attention gives a row other bits than the decode
@@ -478,9 +483,10 @@ def attn_verify_slots_paged(cfg: ModelConfig, p: Attention, xs,
                       for t in range(T)])
     tabs = tab.repeat(T, 1)
     if ks is None:
-        out = ops.paged_attention(q, kp, vp, tabs, lens)
+        out = ops.paged_attention(q, kp[:-1], vp[:-1], tabs, lens)
     else:
-        out = ops.paged_attention_q(q, kp, vp, ks, vs, tabs, lens)
+        out = ops.paged_attention_q(q, kp[:-1], vp[:-1], ks[:-1], vs[:-1],
+                                    tabs, lens)
     return _verify_out(cfg, p, out, xs)
 
 

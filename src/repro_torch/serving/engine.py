@@ -47,7 +47,10 @@
   step bodies run eagerly on the same buffers.
 * **Speculative decoding.** With ``draft_cfg`` / ``draft_params`` (a
   MergeMoE compression of the served model, e.g. from
-  ``launch.compress.run``) the engine runs draft / verify rounds
+  ``launch.compress.run``), or ``EngineConfig.spec_draft``, the directory of
+  such a model's ``ckpt.checkpoint.save_compressed`` artifact (loaded onto
+  the engine's device; its extras are ``engine.draft_artifact``), the engine
+  runs draft / verify rounds
   (``serving.spec``): the draft proposes ``spec_k`` tokens per slot, the
   full model verifies them in one multi-position forward, and acceptance and
   rollback run on the device; every committed token is a full-model sample,
@@ -64,10 +67,13 @@
   request is shed with a reason instead of served, and the pending queue can
   be bounded (``max_pending`` / ``backpressure``).
 
+``Engine.from_checkpoint(directory)`` boots an engine from a
+``save_compressed`` artifact: its own config and parameters, its extras as
+``engine.artifact``.
+
 ``EngineConfig`` keeps every field of the reference's. The values this port
 does not serve yet RAISE ``NotImplementedError`` at construction, never
-silently degrade: ``spec_draft`` (a draft checkpoint directory), ``mesh``,
-``snapshot_every_steps > 0``, a fault plan, and
+silently degrade: ``mesh``, ``snapshot_every_steps > 0``, a fault plan, and
 ``trace_guard`` other than ``"off"`` (there is no jit whose retraces a guard
 could count, so the port's default is ``"off"``; the reference's is
 ``"count"``). With ``numeric_sentinel != "off"`` a non-finite logit row raises
@@ -197,10 +203,6 @@ class EngineConfig:
 def _unsupported(ec: EngineConfig, faults) -> None:
     """Raise for every EngineConfig value this slice does not serve."""
     later = []
-    if ec.spec_draft is not None:
-        later.append("spec_draft (loading a speculative draft from a "
-                     "checkpoint directory comes with the checkpoint slice, "
-                     "ROADMAP A12; pass draft_cfg / draft_params)")
     if ec.mesh is not None:
         later.append("mesh serving (expert-parallel slice)")
     if ec.snapshot_every_steps:
@@ -239,7 +241,14 @@ class Engine:
         cfg = self._serve_dispatch(cfg if cfg is not None else (
             configs.get(ec.arch).reduced() if ec.reduced
             else configs.get(ec.arch)))
-        # speculative decoding: the draft, given in-process
+        # speculative decoding: the draft, given in-process or loaded from
+        # a save_compressed artifact
+        self.artifact: Optional[dict] = None
+        self.draft_artifact: Optional[dict] = None
+        if ec.spec_draft is not None and draft_params is None:
+            from repro_torch.ckpt import checkpoint as CKPT
+            draft_cfg, draft_params, self.draft_artifact = \
+                CKPT.load_compressed(ec.spec_draft, device=self.device)
         self.spec = draft_params is not None
         if self.spec:
             if draft_cfg is None:
@@ -353,6 +362,26 @@ class Engine:
         self._done_early: List[Request] = []
 
     # ------------------------------------------------------------------ API
+
+    @classmethod
+    def from_checkpoint(cls, directory, ec: Optional[EngineConfig] = None,
+                        step: Optional[int] = None,
+                        device="cuda") -> "Engine":
+        """Boot an engine from a ``save_compressed`` artifact on ``device``.
+
+        The artifact's own ModelConfig (per-layer merged-expert counts
+        included) and parameters are used as they are; ``ec`` sets only the
+        serving knobs (default ``EngineConfig(arch=cfg.name,
+        reduced=False)``). The artifact's extras (plan, report, mesh) are
+        ``engine.artifact``."""
+        from repro_torch.ckpt import checkpoint as CKPT
+        cfg, model, artifact = CKPT.load_compressed(directory, step=step,
+                                                    device=device)
+        if ec is None:
+            ec = EngineConfig(arch=cfg.name, reduced=False)
+        eng = cls(ec, cfg=cfg, params=model, device=device)
+        eng.artifact = artifact
+        return eng
 
     @property
     def n_active(self) -> int:

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import configs as ref_configs
 from repro.models import model as ref_MD
@@ -37,6 +38,19 @@ def no_activation_mesh():
     ref_numerics.set_activation_mesh(None)
     yield
     ref_numerics.set_activation_mesh(None)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' tensors are tiny: one intra-op thread runs them as
+    fast alone, and with several test processes sharing the cores it keeps
+    a module's many small ops from waiting on each other's thread pools.
+    The previous setting is restored for the modules that follow. Test
+    modules import this fixture by name to activate it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def cfg_pair(kind: str, dtype: str = "float32", dispatch: str = "gather"):

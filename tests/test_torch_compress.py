@@ -37,6 +37,7 @@ from repro.distributed.compression import shard_layer_solves as ref_solves
 from repro.launch import compress as RLC
 from repro.models import model as RMD
 from repro_torch import convert
+from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.core import calibration as CAL
 from repro_torch.core import clustering as CL
 from repro_torch.core import compress as CMP
@@ -395,7 +396,7 @@ def test_reference_tree_round_trips_the_model(pair):
         assert torch.equal(a, b), name
 
 
-def test_cli_report_and_what_is_not_ported(pair):
+def test_cli_report_and_what_is_not_ported(pair, tmp_path):
     rcfg, params, pcfg, model, _, _ = pair
     _, _, report = LC.run(cfg=pcfg, model=model, merged_experts=4, split=1,
                           calib_batches=1, eval_batches=1, device="cpu",
@@ -408,8 +409,17 @@ def test_cli_report_and_what_is_not_ported(pair):
     assert report["bytes_compressed"] == rreport["bytes_compressed"]
     assert np.isfinite(report["loss_full"]) and np.isfinite(
         report["loss_compressed"])
-    with pytest.raises(NotImplementedError, match="save-dir"):
-        LC.run(cfg=pcfg, model=model, save_dir="/nonexistent", device="cpu")
+    # --save-dir is served (tests/test_torch_ckpt.py): the artifact loads
+    # back as the model the run returned
+    ncfg, nmodel, _ = LC.run(cfg=pcfg, model=model, merged_experts=4,
+                             split=1, calib_batches=1, eval_batches=1,
+                             device="cpu", batch=2, seq=32,
+                             save_dir=tmp_path)
+    lcfg, lmodel, art = CKPT.load_compressed(tmp_path, device="cpu")
+    assert lcfg == ncfg and art["report"]["layers_merged"] == [1]
+    for (name, a), (_, b) in zip(nmodel.state_dict().items(),
+                                 lmodel.state_dict().items()):
+        assert torch.equal(a, b), name
     with pytest.raises(NotImplementedError, match="mesh"):
         LC.run(cfg=pcfg, model=model, mesh_spec="data=2", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):

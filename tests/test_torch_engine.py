@@ -176,18 +176,31 @@ def test_deadlines_shed_and_bounded_queue(small_model):
     assert {r.uid for r in done} == {first.uid, late.uid}
 
 
-@pytest.mark.parametrize("kw", [
-    # the paged forms are served; what a later slice adds to them still raises
-    dict(kv_layout="paged", spec_draft="/x"),
-    dict(kv_dtype="int8", kv_layout="paged", mesh="data=2,model=2"),
-    dict(spec_draft="/x"),
-    dict(mesh="data=2,model=2"),
-    dict(snapshot_every_steps=4, snapshot_dir="/x"),
-    dict(trace_guard="count"), dict(trace_guard="strict"),
-], ids=lambda kw: next(iter(kw)) + "=" + str(next(iter(kw.values()))))
-def test_unsupported_engine_config_values_raise(small_model, kw):
+#: (EngineConfig values, what construction raises): what a later slice
+#: adds still raises NotImplementedError; a ``spec_draft`` directory is
+#: served (tests/test_torch_ckpt.py), so a missing one raises
+#: FileNotFoundError, as the reference's ``load`` does
+CONFIG_CASES = [
+    (dict(kv_layout="paged", spec_draft="/x"), FileNotFoundError),
+    (dict(kv_dtype="int8", kv_layout="paged", mesh="data=2,model=2"),
+     NotImplementedError),
+    (dict(spec_draft="/x"), FileNotFoundError),
+    (dict(mesh="data=2,model=2"), NotImplementedError),
+    (dict(snapshot_every_steps=4, snapshot_dir="/x"), NotImplementedError),
+    (dict(trace_guard="count"), NotImplementedError),
+    (dict(trace_guard="strict"), NotImplementedError),
+]
+
+
+@pytest.mark.parametrize(
+    "kw,error", CONFIG_CASES,
+    ids=[next(iter(kw)) + "=" + str(next(iter(kw.values())))
+         for kw, _ in CONFIG_CASES])
+def test_unsupported_engine_config_values_raise(small_model, kw, error):
     pcfg, model = small_model
-    with pytest.raises(NotImplementedError, match="not served by this slice"):
+    match = ("no committed checkpoint" if error is FileNotFoundError
+             else "not served by this slice")
+    with pytest.raises(error, match=match):
         Engine(_small(**kw), cfg=pcfg, params=model, device="cpu")
 
 

@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_the_reference():
     mods = list(_modules())
     assert len(mods) > 25 and "repro_torch.serving.engine" in mods
     assert {"repro_torch.core.quant", "repro_torch.serving.paging",
-            "repro_torch.kernels.paged_attention"} <= set(mods)
+            "repro_torch.kernels.paged_attention",
+            "repro_torch.ckpt.checkpoint", "repro_torch.ckpt.treedef"} \
+        <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

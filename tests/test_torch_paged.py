@@ -9,17 +9,19 @@ sentinel writes that the reference's scatter drops; and the admission of a
 prompt alone and in a group of four giving bitwise-equal logits, dense and
 paged. fp32 reduced configs (see ``_torch_port``).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.models import layers as RL
 from repro.models import model as RMD
 from repro_torch.launch import steps as ST
 from repro_torch.models import layers as L
 from repro_torch.models import model as MD
 
 from _torch_port import (no_activation_mesh,  # noqa: F401
-                         engine_kwargs, model_pair, port_engine,
+                         cfg_pair, engine_kwargs, model_pair, port_engine,
                          ref_engine, run_trace, trace_requests)
 
 KV_BLOCK = 4
@@ -189,6 +191,59 @@ def test_sentinel_writes_land_in_the_sink_block(paged_setup, kv_dtype):
                        before["ks"][0, :nb].clone(), blk,
                        torch.tensor([0, 1, 2]),
                        torch.zeros((3, cfg.n_kv_heads, cfg.hd)))
+
+
+@pytest.mark.parametrize("step", ["decode", "verify"])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_idle_slot_reads_no_sink_block(kv_dtype, step):
+    """An idle slot (its table row all sentinels) attends through block
+    ``n_blocks - 1``, as the reference's clip does, and never the sink: with
+    the sink filled with NaN its rows from ``attn_decode_paged`` and from
+    every position block of ``attn_verify_slots_paged`` are finite and equal
+    to the reference's ``attn_decode_paged`` on the pool without its sink.
+    Slot 0 is busy and owns blocks 0 to 2."""
+    rcfg, pcfg = cfg_pair("full")
+    rng = np.random.default_rng(8)
+    nb, bs, mb, nkv, hd = 6, KV_BLOCK, 3, pcfg.n_kv_heads, pcfg.hd
+    attn = L.Attention(pcfg, "cpu", torch.Generator().manual_seed(3))
+    rp = {k: jnp.asarray(getattr(attn, k).numpy())
+          for k in ("wq", "wk", "wv", "wo")}
+    shape = (nb + 1, bs, nkv, hd)
+    if kv_dtype == "int8":
+        kp, vp = (torch.from_numpy(rng.integers(-127, 128, shape, np.int8))
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(
+            0.001, 0.02, shape[:3]).astype(np.float32)) for _ in range(2))
+        ks[nb] = vs[nb] = float("nan")
+    else:
+        kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) for _ in range(2))
+        kp[nb] = vp[nb] = float("nan")
+        ks = vs = None
+    ref_pool = [None if a is None else jnp.asarray(a[:nb].numpy())
+                for a in (kp, vp, ks, vs)]
+    tab = torch.tensor([[0, 1, 2], [nb, nb, nb]], dtype=torch.int32)
+    pos = torch.tensor([5, 2], dtype=torch.int32)
+    T = 3 if step == "verify" else 1
+    xs = [torch.from_numpy(rng.standard_normal((2, 1, pcfg.d_model)).astype(
+        np.float32)) for _ in range(T)]
+    inv_p = L.rope_freqs(pcfg.hd, pcfg.rope_theta)
+    inv_r = RL.rope_freqs(rcfg.hd, rcfg.rope_theta)
+    if step == "decode":
+        outs = [L.attn_decode_paged(pcfg, attn, xs[0], kp, vp, ks, vs, tab,
+                                    pos, inv_freq=inv_p)]
+    else:
+        outs = L.attn_verify_slots_paged(pcfg, attn, xs, kp, vp, ks, vs, tab,
+                                         pos, inv_freq=inv_p)
+    for t, out in enumerate(outs):
+        want = RL.attn_decode_paged(
+            rcfg, rp, jnp.asarray(xs[t][1:].numpy()), *ref_pool,
+            jnp.asarray(tab[1:].numpy()), jnp.asarray(pos[1:].numpy() + t),
+            inv_freq=inv_r)[0]
+        got = out[1:].numpy()
+        assert np.isfinite(got).all(), t
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged"])

@@ -45,24 +45,12 @@ from repro_torch.models import model as MD
 from repro_torch.serving import Engine, EngineConfig, accept_drafts
 from repro_torch.serving import poisson_trace
 
-from _torch_port import (no_activation_mesh,  # noqa: F401
+from _torch_port import (no_activation_mesh, one_torch_thread,  # noqa: F401
                          ARCH, cfg_pair, model_pair, ref_engine,
                          ref_tree_numpy)
 from test_torch_graph_steps import (counting,  # noqa: F401
                                     NullGraph, ReplayGraph, no_host_reads,
                                     static_buffers)
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The reduced models' tensors are tiny: one intra-op thread runs them as
-    fast alone, and with several test processes sharing the cores it keeps
-    this module's many small ops from waiting on each other's thread pools.
-    The previous setting is restored for the modules that follow."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
 
 LENS = (5, 16, 9, 30, 12, 7)          # the reference test's trace
 SPEC_K = 3
@@ -622,7 +610,9 @@ def test_spec_configuration_is_checked(port_setup):
     s = port_setup
     cfg, model = s["cfg"], s["model"]
     ncfg, nmodel = s["drafts"]["merged"]
-    with pytest.raises(NotImplementedError, match="A12"):
+    # a draft directory is loaded (tests/test_torch_ckpt.py): a missing one
+    # raises as the reference's load does
+    with pytest.raises(FileNotFoundError, match="no committed checkpoint"):
         Engine(EngineConfig(**dict(ENGINE, spec_draft="/x")), cfg=cfg,
                params=model, device="cpu")
     with pytest.raises(ValueError, match="spec_k"):
