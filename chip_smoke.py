@@ -166,6 +166,32 @@ one JSON line:
             disk, seconds to save and to load (digest included), GB/s. The
             artifacts go to a temporary directory (its free space checked
             first), one at a time, each deleted after its checks
+  resilience after the variants, at their depth (--variant-layers) and the
+            published widths, on the engine's CUDA graphs, in three forms:
+            the paged bf16 pool, the paged int8 pool, and speculative rounds
+            with the model as its own draft on the dense cache. In each: a
+            seeded nan_logits plan on a decoding slot quarantines that
+            request (failed_numeric, a prefix of its clean tokens) while
+            every other request's tokens are the clean run's, with each
+            graph captured once (the poison mask is a static buffer); a
+            transient plan on every decode and admission call within
+            device_retries gives the clean tokens, one beyond it raises
+            DeviceStepError; snapshot() mid-trace restored into a fresh
+            engine finishes token for token (its cache tensors never
+            rebound), as do the engine that kept running and the snapshot
+            loaded back into it (no graph captured again). The paged bf16
+            snapshot also goes through the disk: save_snapshot to a
+            temporary directory (free space checked first, deleted after),
+            loaded with its digest verified and finished token for token,
+            and refused once FaultPlan.corrupt flips a leaf. A snapshot of
+            the reduced fp32 config taken on the card finishes on the CPU
+            and one taken on the CPU finishes on the card, token for token
+            as the CPU's uninterrupted run. Then the hard-kill drill: the
+            child tests/_torch_snapshot_drill_child.py serves on the card
+            with periodic snapshots and leaves with os._exit; restored here,
+            its finished requests and the rest equal an uninterrupted run,
+            none lost. Snapshot bytes and the seconds to snapshot, save,
+            load and restore, beside the card's name and power limit
   witness   (--witness-layers N only) the paged int8 pool's top-1 against the
             bf16 pool at full width and depth N, on the card and on the CPU's
             plain path, same weights and contexts
@@ -1938,7 +1964,7 @@ def serve_summary(res, card):
                 paging_stats=res["paging_stats"],
                 kv_dtype_served=res["kv_dtype_served"],
                 expert_weight_dtypes=res["expert_weight_dtypes"],
-                finite_lane="all ones (a zero raises NumericHealthError)",
+                finite_lane="all ones (a zero quarantines its slot)",
                 cuda_graphs=graphs)
 
 
@@ -3821,6 +3847,389 @@ def decode_lens(trace) -> torch.Tensor:
                         dtype=torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# resilience: fault plans, quarantine, retries, snapshots on the graphs
+# ---------------------------------------------------------------------------
+
+#: the resilience phase's forms at --variant-layers: (name, engine keywords,
+#: the model drafting for itself)
+RESILIENCE_FORMS = (("paged bf16 KV", PAGED, False),
+                    ("paged int8 KV", PAGED_INT8, False),
+                    ("spec, self draft, dense cache", dict(spec_k=SPEC_K),
+                     True))
+#: the step from which the NaN plan may fire, and the snapshot's
+RESILIENCE_POISON_STEP, RESILIENCE_SNAPSHOT_STEP = 16, 24
+#: the drill child (tests/_torch_snapshot_drill_child.py) dies after this
+DRILL_KILL_STEPS = 12
+
+
+def resilience_engine(cfg, model, device, spec: bool, faults=None, **kw):
+    from repro_torch.serving import Engine
+    return Engine(engine_config(**kw), cfg=cfg, params=model, device=device,
+                  draft_cfg=cfg if spec else None,
+                  draft_params=model if spec else None, faults=faults)
+
+
+def submit_trace(eng, trace) -> list:
+    return [eng.submit(r["prompt"], max_new_tokens=r["max_new_tokens"],
+                       arrival_time=r["arrival_time"]) for r in trace]
+
+
+def advance(eng):
+    return eng.step_spec() if eng.spec else eng.step_block()
+
+
+def advance_to(eng, step: int) -> None:
+    """Step the engine until its clock reaches ``step`` with a slot
+    decoding."""
+    while not eng.idle and (eng.steps < step or not eng._active.any()):
+        advance(eng)
+    check(not eng.idle, f"the trace drained before step {step}")
+
+
+@contextlib.contextmanager
+def counting_captures():
+    """Every ``steps.StepGraph`` built (one per graph captured) inside the
+    block, in a list."""
+    from repro_torch.launch import steps as ST
+    seen, init = [], ST.StepGraph.__init__
+
+    def counted(self, *a, **kw):
+        init(self, *a, **kw)
+        seen.append(self)
+    ST.StepGraph.__init__ = counted
+    try:
+        yield seen
+    finally:
+        ST.StepGraph.__init__ = init
+
+
+def uid_tokens(reqs) -> dict:
+    return {r.uid: [int(t) for t in r.out_tokens] for r in reqs}
+
+
+def mid_trace(cfg, model, device, spec, kw, trace):
+    """An engine with the trace submitted, stepped to
+    RESILIENCE_SNAPSHOT_STEP: (engine, its requests, the tokens of those
+    already finished)."""
+    eng = resilience_engine(cfg, model, device, spec, **kw)
+    reqs = submit_trace(eng, trace)
+    advance_to(eng, RESILIENCE_SNAPSHOT_STEP)
+    return eng, reqs, uid_tokens(r for r in reqs if r.status != "queued")
+
+
+def check_one_capture_each(eng, seen, what: str) -> None:
+    """The engine's graphs were each captured once: as many captures as
+    graphs, one decode-kind graph."""
+    stats = eng.graph_stats()
+    kind = "spec round" if eng.spec else "decode block"
+    check([k for k in stats if not k.startswith("admit")] == [kind],
+          f"{what}: decode graphs {sorted(stats)}")
+    check(len(seen) == len(stats),
+          f"{what}: {len(seen)} captures for {len(stats)} graphs")
+
+
+def quarantine_check(cfg, model, device, trace, spec, kw, clean, form,
+                     seed) -> dict:
+    """A seeded nan_logits plan on the first slot decoding at
+    RESILIENCE_POISON_STEP: that request ends failed_numeric with a prefix
+    of its clean tokens, every other request's tokens are bitwise the clean
+    run's, and the poison buffer recaptured nothing."""
+    from repro_torch.serving import FaultPlan, FaultSpec
+    eng = resilience_engine(cfg, model, device, spec, **kw)
+    reqs = submit_trace(eng, trace)
+    with counting_captures() as seen:
+        advance_to(eng, RESILIENCE_POISON_STEP)
+        slot = int(np.flatnonzero(eng._active)[0])
+        victim = eng._slot_req[slot]
+        plan = FaultPlan(seed=seed, specs=(FaultSpec(
+            site="decode", kind="nan_logits", steps=(eng.steps,),
+            slots=(slot,)),))
+        eng._faults = plan
+        eng.run()
+    got = uid_tokens(reqs)
+    check(victim.status == "failed_numeric"
+          and victim.finish_reason == "numeric",
+          f"{form}: the poisoned request ended {victim.status}")
+    n = len(victim.out_tokens)
+    check(n < victim.max_new_tokens and got[victim.uid] == clean[victim.uid][:n],
+          f"{form}: the quarantined request's tokens are not a prefix of "
+          f"its clean ones")
+    others = [r for r in reqs if r is not victim]
+    check(all(r.status == "ok" for r in others)
+          and all(got[r.uid] == clean[r.uid] for r in others),
+          f"{form}: a healthy request's tokens differ from the clean run's")
+    check(eng.counters["quarantined"] == 1
+          and plan.counts() == {"nan_logits": 1},
+          f"{form}: quarantined {eng.counters['quarantined']}, plan "
+          f"{plan.counts()}")
+    check_one_capture_each(eng, seen, form + ", NaN plan")
+    if eng._alloc is not None:
+        eng._alloc.check_invariants()
+    return dict(poisoned_slot=slot, step=plan.trace[0]["step"],
+                tokens_kept=n, healthy_requests_bitwise=len(others),
+                trace_digest=plan.trace_digest())
+
+
+def retry_checks(cfg, model, device, trace, spec, kw, clean, form,
+                 seed) -> dict:
+    """Transient failures on every decode and admission call within
+    ``device_retries`` (2): the clean tokens, every injected failure
+    retried; three a call: DeviceStepError after the budget."""
+    from repro_torch.core import errors as ERR
+    from repro_torch.serving import FaultPlan, FaultSpec
+    plan = FaultPlan(seed=seed, specs=(
+        FaultSpec(site="decode", kind="transient", p=1.0, fails=2),
+        FaultSpec(site="admit", kind="transient", p=1.0, fails=1)))
+    eng = resilience_engine(cfg, model, device, spec, faults=plan, **kw)
+    reqs = submit_trace(eng, trace)
+    eng.run()
+    injected = sum(ev["fails"] for ev in plan.trace)
+    check(uid_tokens(reqs) == clean,
+          f"{form}: retried calls gave other tokens than the clean run")
+    check(eng.counters["transient_retries"] == injected > 0,
+          f"{form}: {eng.counters['transient_retries']} retries for "
+          f"{injected} injected failures")
+    over = FaultPlan(seed=seed, specs=(
+        FaultSpec(site="decode", kind="transient", p=1.0, fails=3),))
+    eng = resilience_engine(cfg, model, device, spec, faults=over, **kw)
+    submit_trace(eng, trace)
+    raised = None
+    try:
+        eng.run()
+    except ERR.DeviceStepError as e:
+        raised = str(e)
+    check(raised is not None and "device_retries=2" in raised
+          and eng.counters["transient_retries"] == 2,
+          f"{form}: three failures a call did not exhaust the budget of 2 "
+          f"({raised})")
+    return dict(within_budget_retries=injected, beyond_budget=raised)
+
+
+def snapshot_check(cfg, model, device, trace, spec, kw, clean, form):
+    """snapshot() at RESILIENCE_SNAPSHOT_STEP restored into a fresh engine
+    on its own graphs finishes token for token, so does the engine that
+    kept running, and the snapshot loaded in place into that engine (its
+    graphs already captured) finishes again with no capture. Returns (the
+    line's entry, the snapshot)."""
+    from repro_torch.serving import Engine
+    a, reqs, done_before = mid_trace(cfg, model, device, spec, kw, trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = a.snapshot()
+    snapshot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = Engine.restore(snap, cfg=cfg, params=model,
+                       draft_cfg=cfg if spec else None,
+                       draft_params=model if spec else None, device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ptrs = {n: t.data_ptr() for n, t in b.cache.items()}
+    with counting_captures() as seen:
+        after = uid_tokens(b.run())
+    check({**done_before, **after} == clean,
+          f"{form}: the restored engine's tokens differ from the "
+          f"uninterrupted run's")
+    check({n: t.data_ptr() for n, t in b.cache.items()} == ptrs,
+          f"{form}: the restored engine rebound a cache tensor")
+    check_one_capture_each(b, seen, form + ", restored")
+    a.run()
+    check(uid_tokens(reqs) == clean,
+          f"{form}: snapshotting perturbed the engine that kept running")
+    with counting_captures() as seen:
+        a._load_snapshot(snap)
+        again = uid_tokens(a.run())
+    check({**done_before, **again} == clean and not seen,
+          f"{form}: the snapshot loaded into the running engine gave other "
+          f"tokens or captured {len(seen)} graphs")
+    n_bytes = sum(t.numel() * t.element_size() for c in snap["arrays"].values()
+                  for t in c.values())
+    return dict(snapshot_bytes=n_bytes,
+                host_part_bytes=len(json.dumps(snap["host"])),
+                snapshot_s=snapshot_s, restore_s=restore_s,
+                finished_before=len(done_before)), snap
+
+
+def disk_snapshot_check(cfg, model, device, trace, kw, clean, snap) -> dict:
+    """The paged bf16 form's snapshot saved to a temporary directory (its
+    free space checked first), loaded with the digest verified, restored
+    and finished token for token; a leaf bit-flipped by FaultPlan.corrupt
+    refused; the directory deleted."""
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.core import errors as ERR
+    from repro_torch.serving import Engine, FaultPlan, FaultSpec
+    a, _, done_before = mid_trace(cfg, model, device, False, kw, trace)
+    need = 2 * sum(t.numel() * t.element_size()
+                   for c in snap["arrays"].values() for t in c.values())
+    root = artifact_dir(need)
+    try:
+        t0 = time.perf_counter()
+        committed = a.save_snapshot(root)
+        save_s = time.perf_counter() - t0
+        on_disk = dir_bytes(committed)
+        t0 = time.perf_counter()
+        CKPT.load(root, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = Engine.restore(root, cfg=cfg, params=model, device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check({**done_before, **uid_tokens(b.run())} == clean,
+              "disk snapshot: the restored engine's tokens differ")
+        leaf = max(committed.glob("leaf_*.npy"),
+                   key=lambda f: f.stat().st_size)
+        plan = FaultPlan(seed=0, specs=(FaultSpec(
+            site="ckpt", kind="corrupt", steps=(0,), byte_offsets=(-1,)),))
+        leaf.write_bytes(plan.corrupt(leaf.read_bytes()))
+        refused = False
+        try:
+            Engine.restore(root, cfg=cfg, params=model, device=device)
+        except ERR.ArtifactCorruptError:
+            refused = True
+        check(refused, "disk snapshot: a corrupted leaf was not refused")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(bytes_on_disk=on_disk, save_s=save_s,
+                load_with_digest_s=load_s, restore_from_disk_s=restore_s,
+                corrupted_leaf_refused=True)
+
+
+def cross_device_check(args, full_cfg, device) -> dict:
+    """The reduced fp32 config (the rehearsal's, card == CPU token for
+    token), paged pool: a snapshot taken on the card restored on the CPU,
+    and one saved on the CPU restored onto the card, each finishing with
+    the uninterrupted CPU run's tokens."""
+    from repro_torch.models import model as MD
+    from repro_torch.serving import Engine
+    small = full_cfg.reduced().replace(dtype="float32")
+    trace = make_trace(small.vocab_size, args.seed)
+    cpu_model = MD.init(small, "cpu", seed=args.seed)
+    gpu_model = MD.init(small, device, seed=args.seed)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    eng = resilience_engine(small, cpu_model, "cpu", False, **PAGED)
+    reqs = submit_trace(eng, trace)
+    eng.run()
+    want = uid_tokens(reqs)
+    out = {}
+    for (src, m_src), (dst, m_dst) in (((device, gpu_model), ("cpu", cpu_model)),
+                                       (("cpu", cpu_model), (device, gpu_model))):
+        a, _, done = mid_trace(small, m_src, src, False, PAGED, trace)
+        root = artifact_dir(1 << 30)
+        try:
+            a.save_snapshot(root)
+            b = Engine.restore(root, cfg=small, params=m_dst, device=dst)
+            got = {**done, **uid_tokens(b.run())}
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        check(got == want, f"a snapshot saved on {src} and restored on "
+                           f"{dst} finished with other tokens")
+        out[f"{src}_to_{dst}"] = "token for token"
+    del cpu_model, gpu_model
+    free()
+    return out
+
+
+def drill_on_the_card(args, layers: int, device) -> dict:
+    """tests/_torch_snapshot_drill_child.py on the card in a child process
+    (qwen3-moe at its published widths and ``layers`` deep, the paged pool,
+    snapshots every 4 steps, os._exit after step DRILL_KILL_STEPS), then the
+    directory restored here and finished: the child's finished requests and
+    the restored engine's equal an uninterrupted run's tokens, and no
+    request is lost."""
+    import subprocess
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _torch_snapshot_drill_child import (KILL_CODE, build_trace,
+                                             drill_engine_config,
+                                             drill_model_config)
+    cfg = drill_model_config(layers=layers)
+    from repro_torch.serving import Engine
+    child = Path(__file__).resolve().parent / "tests" / \
+        "_torch_snapshot_drill_child.py"
+    root = artifact_dir(1 << 30)
+    try:
+        t0 = time.perf_counter()
+        src = str(Path(__file__).resolve().parent / "src")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        r = subprocess.run(
+            [sys.executable, str(child), "--snapshot-dir", root,
+             "--kill-after-steps", str(DRILL_KILL_STEPS), "--device",
+             device, "--layers", str(layers), "--seed",
+             str(args.seed)],
+            capture_output=True, text=True, timeout=600, env=env)
+        child_s = time.perf_counter() - t0
+        check(r.returncode == KILL_CODE,
+              f"drill child exited {r.returncode}: {r.stdout[-2000:]}"
+              f"{r.stderr[-4000:]}")
+        pre = [json.loads(line) for line in r.stdout.splitlines() if line]
+        # the child's weights: the engine's seeded default, built here the
+        # same way
+        ec = drill_engine_config(reduced=False, seed=args.seed)
+        trace = build_trace(cfg.vocab_size)
+        full = Engine(ec, cfg=cfg, device=device)
+        for t in trace:
+            full.submit(t["prompt"], t["max_new_tokens"],
+                        arrival_time=t["arrival_time"])
+        want = uid_tokens(full.run())
+        t0 = time.perf_counter()
+        eng = Engine.restore(root, cfg=cfg, params=full.params,
+                             device=device)
+        restore_s = time.perf_counter() - t0
+        at_step = eng.steps
+        check(0 < at_step <= DRILL_KILL_STEPS,
+              f"drill: restored at step {at_step}")
+        post = uid_tokens(eng.run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(all(rec["tokens"] == want[rec["uid"]] for rec in pre)
+          and all(toks == want[u] for u, toks in post.items()),
+          "drill: a pre-crash or post-restore stream differs from the "
+          "uninterrupted run's")
+    check(set(post) | {rec["uid"] for rec in pre} == set(want) and post,
+          "drill: a request was lost across the crash")
+    return dict(child_exit=r.returncode, child_s=child_s,
+                finished_before_crash=len(pre), finished_after_restore=len(post),
+                restored_at_step=at_step, restore_s=restore_s)
+
+
+def resilience_phase(args, full_cfg, cfg, model, device, card) -> dict:
+    """The resilience line: in each RESILIENCE_FORMS form on the card's
+    graphs, the NaN quarantine, the retry budget and a snapshot restored
+    token for token; the paged bf16 snapshot through the disk; a snapshot
+    across devices; the hard-kill drill in a child process."""
+    trace = make_trace(cfg.vocab_size, args.seed, n_requests=12,
+                       new_tokens=24)
+    forms = {}
+    snaps = {}
+    for form, kw, spec in RESILIENCE_FORMS:
+        eng = resilience_engine(cfg, model, device, spec, **kw)
+        reqs = submit_trace(eng, trace)
+        eng.run()
+        clean = uid_tokens(reqs)
+        check(all(r.status == "ok" for r in reqs)
+              and eng.counters["quarantined"] == 0
+              and eng.counters["transient_retries"] == 0,
+              f"{form}: the clean run is not clean")
+        res = dict(quarantine=quarantine_check(cfg, model, device, trace,
+                                               spec, kw, clean, form,
+                                               args.seed),
+                   retries=retry_checks(cfg, model, device, trace, spec, kw,
+                                        clean, form, args.seed))
+        res["snapshot"], snaps[form] = snapshot_check(
+            cfg, model, device, trace, spec, kw, clean, form)
+        if form == "paged bf16 KV":
+            res["disk"] = disk_snapshot_check(cfg, model, device, trace, kw,
+                                              clean, snaps[form])
+        forms[form] = res
+        free()
+    return dict(layers=cfg.n_layers, requests=len(trace), forms=forms,
+                across_devices=cross_device_check(args, full_cfg, device),
+                drill=drill_on_the_card(args, cfg.n_layers, device),
+                card=card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=24,
@@ -4151,6 +4560,7 @@ def main(argv=None) -> int:
             same_admission_groups=k1["admits"] == base["admits"],
             share_of_tokens_equal=top1(k1["tokens"], base["tokens"]), tokens_per_s=tps(k1)))
     emit("serve", form="variants", card=card, **variants)
+    t_variants = time.perf_counter() - t0
     check(variants["dispatch_ragged"]["token_equal"],
           "dispatch='ragged' gives other tokens than dispatch='gather'")
     check(variants["decode_block_1_same_admission_groups"]["token_equal"],
@@ -4161,9 +4571,14 @@ def main(argv=None) -> int:
     check(variants["decode_block_1_staggered"]["token_equal"],
           "decode_block=1 gives other tokens than decode_block=8 on the "
           "staggered trace")
+    # ---- resilience at the same depth, on the card's graphs
+    t0 = time.perf_counter()
+    emit("resilience", model=vcfg.name,
+         **resilience_phase(args, full_cfg, vcfg, model, device, card),
+         seconds=time.perf_counter() - t0)
     del model
     free()
-    t_variants = time.perf_counter() - t0
+    t_resilience = time.perf_counter() - t0
     if args.witness_layers > 0:
         emit("witness", card=card, **cpu_witness(args, full_cfg, device))
 
@@ -4193,7 +4608,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
         rehearse=t_rehearse, kernels=t_kernels, serve=t_serve, dense=t_dense,
-        compress=t_compress, variants=t_variants,
+        compress=t_compress, variants=t_variants, resilience=t_resilience,
         total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,15 @@ graph per pad shape at batch 1), and a speculative engine each draft /
 verify round (:class:`GraphedRound` over :func:`make_slot_decode_spec`), so
 the device, not Python, drives serving.
 On the CPU, and in ``chip_smoke.py``'s comparisons on the card, the bodies
-run eagerly. The kernels inside a graph are the same hand-written ones. The
-fault-injection ``poison`` argument of the reference's decode steps is not
-ported (fault plans belong to the resilience slice).
+run eagerly. The kernels inside a graph are the same hand-written ones.
+
+The decode steps and the speculative round take the reference's
+fault-injection ``poison`` mask (``serving.faults``): a ``[B]`` bool whose
+True rows get their logits NaN-poisoned after each forward, which the
+numeric-health lane then reports. The engine hands its graphs one more
+static buffer for it, filled in place before each replay, so a mask never
+recaptures a graph; an all-False mask selects the untouched logits, bitwise
+the step without it.
 """
 from __future__ import annotations
 
@@ -82,22 +88,36 @@ def _consts(cfg: ModelConfig, cache, consts: Optional[MD.SlotConsts]):
     return MD.slot_consts(cfg, cache) if consts is None else consts
 
 
+def poison_logits(logits: torch.Tensor,
+                  poison: Optional[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``where(poison[:, None], nan, logits)`` over the
+    leading (slot) axis of ``logits`` (``[B, V]`` or a verify's ``[B, T,
+    V]``): NaN in the rows of poisoned slots, the other rows' values as they
+    are. ``poison`` None (no mask given) returns ``logits`` itself."""
+    if poison is None:
+        return logits
+    mask = poison.reshape(poison.shape + (1,) * (logits.dim() - 1))
+    return logits.masked_fill(mask, float("nan"))
+
+
 def make_slot_decode(cfg: ModelConfig, temperature: float = 0.0,
                      consts: Optional[MD.SlotConsts] = None) -> Callable:
-    """slot_decode(model, cache, token [B], active [B], keys [B, 2] = None)
-    -> (logits [B, V], aux [B, 2] int32, cache) with ``aux[b] = (token,
-    finite)``: the sampled token (:func:`sample_tokens` at
+    """slot_decode(model, cache, token [B], active [B], keys [B, 2] = None,
+    poison [B] bool = None) -> (logits [B, V], aux [B, 2] int32, cache) with
+    ``aux[b] = (token, finite)``: the sampled token (:func:`sample_tokens` at
     ``cache["pos"]`` after the step, the position it will occupy; the greedy
     argmax at ``temperature <= 0``, where ``keys`` may be None) and the
     numeric-health flag (all logits finite) packed into one tensor, so the
     engine reads back once per step at any temperature. The reference's step
     returns the greedy argmax here and samples at T > 0 from the logits on
-    the host. ``consts``: the cache's ``model.slot_consts``, built once by
-    the engine (default: built at every call)."""
+    the host. ``poison``: the fault-injection mask (:func:`poison_logits`,
+    after the forward). ``consts``: the cache's ``model.slot_consts``, built
+    once by the engine (default: built at every call)."""
     @torch.inference_mode()
-    def slot_decode(model, cache, token, active, keys=None):
+    def slot_decode(model, cache, token, active, keys=None, poison=None):
         logits, cache = MD.decode_step_slots(cfg, model, cache, token, active,
                                              _consts(cfg, cache, consts))
+        logits = poison_logits(logits, poison)
         tok = sample_tokens(logits, temperature, keys, cache["pos"])
         finite = torch.isfinite(logits).all(dim=-1).to(torch.int32)
         return logits, torch.stack([tok, finite], dim=-1), cache
@@ -201,11 +221,12 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
     """Fused K-step decode: K steps with NO host read between them.
 
     slot_decode_multi(model, cache, token [B], active [B], remaining [B],
-    eos [B], keys [B, 2] = None) -> (block [K, B, 3] int32, active [B] bool,
-    cache), where
+    eos [B], keys [B, 2] = None, poison [B] bool = None) -> (block [K, B, 3]
+    int32, active [B] bool, cache), where
     ``block[s, b] = (token, emitted, finite)``: tokens, their emitted flags
     and the numeric-health lane packed into one tensor, so the engine reads
-    back once per block.
+    back once per block. ``poison``: the fault-injection mask, applied
+    after each of the K forwards (:func:`poison_logits`).
 
     Sampling (:func:`sample_tokens` at ``cache["pos"]`` after each step,
     the position the token will occupy; ``keys`` may be None at
@@ -219,7 +240,7 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
     same."""
     @torch.inference_mode()
     def slot_decode_multi(model, cache, token, active, remaining, eos,
-                          keys=None):
+                          keys=None, poison=None):
         c = _consts(cfg, cache, consts)
         B = token.shape[0]
         block = torch.empty((k_steps, B, 3), dtype=torch.int32,
@@ -228,6 +249,7 @@ def make_slot_decode_multi(cfg: ModelConfig, k_steps: int,
         for s in range(k_steps):
             logits, cache = MD.decode_step_slots(cfg, model, cache, tok, act,
                                                  c)
+            logits = poison_logits(logits, poison)
             finite = torch.isfinite(logits).all(dim=-1)
             # frozen rows sample garbage that is never emitted
             nxt = sample_tokens(logits, temperature, keys, cache["pos"])

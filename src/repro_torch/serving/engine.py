@@ -63,9 +63,28 @@
 * **Stop conditions.** Per-request ``max_new_tokens`` and optional
   ``eos_token``, evaluated on the device inside the block; freed slots admit
   at the next block boundary.
-* **Deadlines.** Requests carry optional deadlines / TTLs; an expired pending
-  request is shed with a reason instead of served, and the pending queue can
-  be bounded (``max_pending`` / ``backpressure``).
+* **Resilience (DESIGN.md §12).** Requests carry optional deadlines / TTLs
+  and end with an explicit ``status`` (``ok`` / ``shed`` /
+  ``failed_numeric`` / ``failed``): an expired pending request is shed with
+  a reason instead of served (``pool_pressure`` when the allocator deferred
+  it), and the pending queue can be bounded (``max_pending`` /
+  ``backpressure``). The readback block's finite lane is the numeric-health
+  sentinel: under ``numeric_sentinel="count"`` a slot whose logits go
+  non-finite is QUARANTINED (evicted ``failed_numeric``, tokens kept up to
+  the poisoned row, paged blocks back to the pool, ``counters
+  ["quarantined"]``) while the other slots serve on untouched; ``"strict"``
+  does the same, then raises ``NumericHealthError`` after the replay loop;
+  ``"off"`` serves what was sampled. A seeded ``serving.faults.FaultPlan``
+  (``faults=``) injects NaN logits through the steps' ``poison`` mask (one
+  more static buffer of the graphs, so a mask never recaptures one),
+  transient step failures (retried up to ``device_retries``, then
+  ``DeviceStepError``) and allocator exhaustion. ``snapshot()`` /
+  ``save_snapshot()`` / ``Engine.restore()`` carry the COMPLETE engine state
+  (scheduler, slots, sampling keys, counters, allocator, both caches) in the
+  reference's format, and ``snapshot_every_steps`` saves one to
+  ``snapshot_dir`` periodically, so a crashed engine resumes token for
+  token. A restore copies the caches into the new engine's own tensors,
+  whose addresses its graphs hold, and never rebinds them.
 
 ``Engine.from_checkpoint(directory)`` boots an engine from a
 ``save_compressed`` artifact: its own config and parameters, its extras as
@@ -73,11 +92,9 @@
 
 ``EngineConfig`` keeps every field of the reference's. The values this port
 does not serve yet RAISE ``NotImplementedError`` at construction, never
-silently degrade: ``mesh``, ``snapshot_every_steps > 0``, a fault plan, and
-``trace_guard`` other than ``"off"`` (there is no jit whose retraces a guard
-could count, so the port's default is ``"off"``; the reference's is
-``"count"``). With ``numeric_sentinel != "off"`` a non-finite logit row raises
-``NumericHealthError`` (per-slot quarantine waits for the resilience slice).
+silently degrade: ``mesh`` and ``trace_guard`` other than ``"off"`` (there is
+no jit whose retraces a guard could count, so the port's default is
+``"off"``; the reference's is ``"count"``).
 
 The clock is pluggable: ``clock='steps'`` interprets ``arrival_time`` in
 decode-step units (deterministic), ``clock='wall'`` in seconds.
@@ -100,7 +117,7 @@ from __future__ import annotations
 import dataclasses
 import heapq
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,6 +128,7 @@ from repro_torch.core import quant as Q
 from repro_torch.core import threefry as TF
 from repro_torch.launch import steps as ST
 from repro_torch.models import model as MD
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.paging import PagedAllocator
 
 
@@ -132,8 +150,9 @@ class Request:
     t_admitted: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finished: Optional[float] = None
-    finish_reason: Optional[str] = None  # "length" | "eos" | "shed"
-    # terminal status: "queued" until terminal, then "ok" | "shed"
+    finish_reason: Optional[str] = None  # "length" | "eos" | "shed" | "numeric"
+    # terminal status: "queued" until terminal, then "ok" | "shed" |
+    # "failed_numeric" | "failed"
     status: str = "queued"
     shed_reason: Optional[str] = None    # "deadline" | "pool_pressure"
     # True once admission deferred this request for lack of pool blocks: a
@@ -184,31 +203,38 @@ class EngineConfig:
     kv_blocks: int = 0
     kv_dtype: str = "bf16"
     prefix_sharing: bool = True
-    # "off" ignores the finite lane of the readback block; "count" and
-    # "strict" raise NumericHealthError on a non-finite slot
+    # numeric-health sentinel over the finite lane of the readback block:
+    # "off" ignores the lane, "count" quarantines a poisoned slot (evicted
+    # failed_numeric, counters["quarantined"]), "strict" also raises
+    # NumericHealthError after quarantining
     numeric_sentinel: str = "count"
     # bounded pending queue (0 = unbounded) + backpressure policy when
     # full: "reject_new" raises QueueFullError at submit; "shed_expired"
     # first sheds expired pending requests, then rejects if still full
     max_pending: int = 0
     backpressure: str = "reject_new"
+    # bounded retry of a step call that fails transiently (injected by a
+    # FaultPlan): how many failures one call may absorb before
+    # DeviceStepError, and the exponential backoff base between attempts
     device_retries: int = 2
     retry_backoff_s: float = 0.0
     mesh: Optional[str] = None
     combine_wire_dtype: str = "fp32"
+    # > 0: save_snapshot to snapshot_dir every N engine steps (the step
+    # clock), so a crash loses at most N steps of work; 0 disables
     snapshot_every_steps: int = 0
     snapshot_dir: Optional[str] = None
 
 
-def _unsupported(ec: EngineConfig, faults) -> None:
-    """Raise for every EngineConfig value this slice does not serve."""
+#: cache entries fixed by the configuration (host scalars), not state
+_CACHE_CONSTS = ("s_max", "kv_block")
+
+
+def _unsupported(ec: EngineConfig) -> None:
+    """Raise for every EngineConfig value this port does not serve yet."""
     later = []
     if ec.mesh is not None:
         later.append("mesh serving (expert-parallel slice)")
-    if ec.snapshot_every_steps:
-        later.append("snapshot_every_steps > 0 (resilience slice)")
-    if faults is not None:
-        later.append("a fault plan (resilience slice)")
     if ec.trace_guard != "off":
         later.append(f"trace_guard={ec.trace_guard!r} (tooling slice; the "
                      f"port has no jit that could retrace, use 'off')")
@@ -223,7 +249,8 @@ class Engine:
     ``device`` defaults to ``"cuda"`` and is never chosen for the caller:
     without a card, construction with the default raises. ``params`` is a
     :class:`repro_torch.models.model.Model` (default: random weights from
-    ``ec.seed``)."""
+    ``ec.seed``). ``faults``: a seeded ``serving.faults.FaultPlan`` (None
+    serves clean)."""
 
     def __init__(self, ec: EngineConfig, cfg=None, params=None,
                  draft_cfg=None, draft_params=None, faults=None,
@@ -237,7 +264,14 @@ class Engine:
                 "PyTorch path")
         if ec.snapshot_every_steps is None:    # None == 0 == disabled
             ec.snapshot_every_steps = 0
-        _unsupported(ec, faults)
+        _unsupported(ec)
+        if faults is not None and not isinstance(faults, FaultPlan):
+            raise TypeError(f"faults must be a serving.faults.FaultPlan, got "
+                            f"{type(faults).__name__}")
+        if ec.snapshot_every_steps < 0:
+            raise ValueError("snapshot_every_steps must be >= 0")
+        if ec.snapshot_every_steps > 0 and not ec.snapshot_dir:
+            raise ValueError("snapshot_every_steps > 0 requires snapshot_dir")
         cfg = self._serve_dispatch(cfg if cfg is not None else (
             configs.get(ec.arch).reduced() if ec.reduced
             else configs.get(ec.arch)))
@@ -303,11 +337,14 @@ class Engine:
         # group's replays, one per row and model), host_syncs counts
         # device->host readbacks, tokens_out counts generated tokens;
         # tokens_drafted / accepted / rolled_back are the speculative
-        # rounds' bookkeeping (zero outside spec mode)
+        # rounds' bookkeeping (zero outside spec mode); shed, quarantined
+        # and transient_retries the resilience telemetry (all zero on a
+        # healthy, uncontended trace)
         self.counters: Dict[str, int] = {
-            "device_calls": 0, "host_syncs": 0, "tokens_out": 0, "shed": 0,
+            "device_calls": 0, "host_syncs": 0, "tokens_out": 0,
             "tokens_drafted": 0, "tokens_accepted": 0,
-            "tokens_rolled_back": 0}
+            "tokens_rolled_back": 0,
+            "shed": 0, "quarantined": 0, "transient_retries": 0}
         self._buckets = tuple(sorted(set(int(b) for b in ec.prefill_buckets)))
         # the ONLY prompt pad lengths admission may use; bucket_for fails
         # closed on non-membership
@@ -360,6 +397,11 @@ class Engine:
         # requests shed at SUBMIT time (backpressure) waiting to be returned
         # from the next step's finished list
         self._done_early: List[Request] = []
+        # seeded fault-injection plan (serving.faults); None serves clean
+        self._faults = faults
+        self._zero_poison = np.zeros((ec.n_slots,), bool)
+        # step count at the last periodic snapshot (snapshot_every_steps)
+        self._last_snap = 0
 
     # ------------------------------------------------------------------ API
 
@@ -382,6 +424,171 @@ class Engine:
         eng = cls(ec, cfg=cfg, params=model, device=device)
         eng.artifact = artifact
         return eng
+
+    # -------------------------------------------- snapshot / restore (§12)
+
+    def _req_state(self, r: Request) -> Dict:
+        return {
+            "uid": int(r.uid), "prompt": [int(t) for t in r.prompt],
+            "max_new_tokens": int(r.max_new_tokens),
+            "eos_token": None if r.eos_token is None else int(r.eos_token),
+            "arrival_time": float(r.arrival_time),
+            "deadline": None if r.deadline is None else float(r.deadline),
+            "ttl": None if r.ttl is None else float(r.ttl),
+            "out_tokens": [int(t) for t in r.out_tokens],
+            "t_admitted": r.t_admitted, "t_first_token": r.t_first_token,
+            "status": r.status, "deferred": bool(r.deferred),
+        }
+
+    def snapshot(self) -> Dict:
+        """The COMPLETE engine state, the reference's layout: the scheduler
+        (pending heap and requests in flight), slot occupancy, sampling
+        keys, counters, the PagedAllocator (free list, refcounts, tables,
+        prefix registry in LRU order) and both caches, enough for
+        :meth:`restore` to finish the trace token for token as an
+        uninterrupted run. ``host`` is JSON-safe; ``arrays`` holds copies of
+        the caches on the host (their dtypes kept). Terminal requests are
+        the caller's, not engine state, and are left out."""
+        reqs: Dict[int, Request] = {}
+        for _, _, _, r in self._pending:
+            reqs[r.uid] = r
+        for r in self._slot_req:
+            if r is not None:
+                reqs[r.uid] = r
+        host = {
+            "version": 1,
+            "step_count": int(self._step_count),
+            "next_uid": int(self._next_uid),
+            "seq": int(self._seq_n),
+            "counters": {k: int(v) for k, v in self.counters.items()},
+            "requests": [self._req_state(r) for _, r in sorted(reqs.items())],
+            "pending": [[float(a), int(u), int(s)]
+                        for a, u, s, _ in self._pending],
+            "slots": [None if r is None else int(r.uid)
+                      for r in self._slot_req],
+            "last_tok": [int(t) for t in self._last_tok],
+            "active": [bool(a) for a in self._active],
+            "slot_keys": self._slot_keys.tolist(),
+            "alloc": (None if self._alloc is None
+                      else self._alloc.state_dict()),
+        }
+        arrays = {"cache": _cache_state(self.cache)}
+        if self.cache_draft is not None:
+            arrays["cache_draft"] = _cache_state(self.cache_draft)
+        return {"ec": dataclasses.asdict(self.ec), "host": host,
+                "arrays": arrays}
+
+    def save_snapshot(self, directory):
+        """Save :meth:`snapshot` through ``ckpt.checkpoint.save`` (staged,
+        COMMIT-marked, digest verified on load) as step ``steps`` under
+        ``directory``, in the reference's format. Returns the committed
+        directory."""
+        from repro_torch.ckpt import checkpoint as CKPT
+        snap = self.snapshot()
+        ecd = dict(snap["ec"])
+        ecd["prefill_buckets"] = list(ecd["prefill_buckets"])
+        return CKPT.save(directory, self._step_count, snap["arrays"],
+                         extras={"engine": {"ec": ecd,
+                                            "host": snap["host"]}},
+                         keep=0)
+
+    def _maybe_snapshot(self) -> None:
+        """Periodic snapshots: with ``snapshot_every_steps > 0``, save one to
+        ``snapshot_dir`` whenever the step clock has advanced that far since
+        the last, at a step boundary, so a crash loses at most one interval
+        of work."""
+        every = self.ec.snapshot_every_steps
+        if every > 0 and self._step_count - self._last_snap >= every:
+            self.save_snapshot(self.ec.snapshot_dir)
+            self._last_snap = self._step_count
+
+    @classmethod
+    def restore(cls, snap, cfg=None, params=None, draft_cfg=None,
+                draft_params=None, faults=None, verify: bool = True,
+                device="cuda") -> "Engine":
+        """An engine on ``device`` rebuilt from :meth:`snapshot` output (a
+        dict) or a :meth:`save_snapshot` directory (a path: its latest
+        committed step, loaded onto ``device``), the reference engine's
+        snapshots included. The parameters are not part of a snapshot: pass
+        the ones the snapshotted engine served (or rely on the seeded
+        default). A directory's ``tree_digest`` is verified and a corrupted
+        snapshot refused unless ``verify=False``. The caches are copied into
+        the new engine's own tensors (:func:`_copy_cache`)."""
+        if not isinstance(snap, dict):
+            from repro_torch.ckpt import checkpoint as CKPT
+            arrays, extras = CKPT.load(snap, verify=verify, device=device)
+            eng_x = extras.get("engine")
+            if eng_x is None:
+                raise ValueError(f"{snap} holds no engine snapshot "
+                                 f"(missing 'engine' extras)")
+            snap = {"ec": eng_x["ec"], "host": eng_x["host"],
+                    "arrays": arrays}
+        ecd = dict(snap["ec"])
+        ecd["prefill_buckets"] = tuple(ecd["prefill_buckets"])
+        eng = cls(EngineConfig(**ecd), cfg=cfg, params=params,
+                  draft_cfg=draft_cfg, draft_params=draft_params,
+                  faults=faults, device=device)
+        eng._load_snapshot(snap)
+        return eng
+
+    def _load_snapshot(self, snap: Dict) -> None:
+        """Take on a snapshot's state. The caches are copied in place, never
+        rebound, so an engine whose graphs are already captured replays them
+        on the restored state."""
+        host = snap["host"]
+        if host.get("version") != 1:
+            raise ValueError(f"unknown snapshot version "
+                             f"{host.get('version')!r}")
+        arrays = snap["arrays"]
+        if (self.cache_draft is not None) != ("cache_draft" in arrays):
+            raise ValueError("the snapshot and the engine disagree on "
+                             "speculative decoding (a draft cache)")
+        _copy_cache(self.cache, arrays["cache"], "cache")
+        if self.cache_draft is not None:
+            _copy_cache(self.cache_draft, arrays["cache_draft"],
+                        "cache_draft")
+        self._step_count = int(host["step_count"])
+        self._next_uid = int(host["next_uid"])
+        self._seq_n = int(host["seq"])
+        self.counters.update({k: int(v)
+                              for k, v in host["counters"].items()})
+        reqs: Dict[int, Request] = {}
+        for st in host["requests"]:
+            r = Request(
+                uid=int(st["uid"]),
+                prompt=np.asarray(st["prompt"], np.int32),
+                max_new_tokens=int(st["max_new_tokens"]),
+                eos_token=(None if st["eos_token"] is None
+                           else int(st["eos_token"])),
+                arrival_time=float(st["arrival_time"]),
+                deadline=(None if st["deadline"] is None
+                          else float(st["deadline"])),
+                ttl=None if st["ttl"] is None else float(st["ttl"]))
+            r.out_tokens = [int(t) for t in st["out_tokens"]]
+            r.t_admitted = st["t_admitted"]
+            r.t_first_token = st["t_first_token"]
+            r.status = st["status"]
+            r.deferred = bool(st["deferred"])
+            reqs[r.uid] = r
+        self._pending = [(float(a), int(u), int(s), reqs[int(u)])
+                         for a, u, s in host["pending"]]
+        heapq.heapify(self._pending)
+        self._slot_req = [None if u is None else reqs[int(u)]
+                          for u in host["slots"]]
+        self._last_tok = np.asarray(host["last_tok"], np.int32)
+        self._active = np.asarray(host["active"], bool)
+        self._slot_keys = np.asarray(host["slot_keys"], np.int64)
+        self._inflight = set(reqs)
+        self._done_early = []
+        if self._alloc is not None:
+            if host["alloc"] is None:
+                raise ValueError("snapshot has no allocator state but the "
+                                 "restored engine is paged")
+            self._alloc.load_state(host["alloc"])
+            self._tab_dirty = True
+        # the restored step count is the new snapshot epoch: a periodic
+        # engine would otherwise snapshot again at its first step
+        self._last_snap = self._step_count
 
     @property
     def n_active(self) -> int:
@@ -572,7 +779,8 @@ class Engine:
                         ("active", (n,), torch.bool),
                         ("remaining", (n,), torch.int32),
                         ("eos", (n,), torch.int32),
-                        ("keys", (n, 2), torch.int64))}
+                        ("keys", (n, 2), torch.int64),
+                        ("poison", (n,), torch.bool))}
         paged = self._alloc is not None
         admit = (ST.make_slot_admit_paged if paged else ST.make_slot_admit)(
             cfg, consts)
@@ -587,11 +795,12 @@ class Engine:
             admit = ST.GraphedAdmit(row, self.params, self.cache,
                                     lambda: new_graph("admit"))
             decode = ST.GraphedStep(decode, self.params, self.cache,
-                                    (b["token"], b["active"], b["keys"]),
+                                    (b["token"], b["active"], b["keys"],
+                                     b["poison"]),
                                     lambda: new_graph("decode"))
             multi = ST.GraphedStep(multi, self.params, self.cache,
                                    (b["token"], b["active"], b["remaining"],
-                                    b["eos"], b["keys"]),
+                                    b["eos"], b["keys"], b["poison"]),
                                    lambda: new_graph("decode"))
             self._graphed = {"admit": admit, "decode step": decode,
                              "decode block": multi}
@@ -618,7 +827,7 @@ class Engine:
             round_ = ST.GraphedRound(
                 round_, self.params, self.draft_params, self.cache,
                 self.cache_draft, (b["token"], b["active"], b["remaining"],
-                                   b["eos"], b["keys"]),
+                                   b["eos"], b["keys"], b["poison"]),
                 lambda: new_graph("decode"))
             self._graphed.update({"admit draft": admit_d,
                                   "spec round": round_})
@@ -651,19 +860,26 @@ class Engine:
         reference loop; :meth:`step_block` is the production path."""
         now = self._now() if now is None else now
         finished = self._admit(now)
+        quarantined: List[Request] = []
         if self._active.any():
             self._sync_tab()
-            _, aux, self.cache = self._decode(
-                self.params, self.cache, self._load("token", self._last_tok),
-                self._load("active", self._active),
-                self._load("keys", self._slot_keys))
+            args = (self.params, self.cache,
+                    self._load("token", self._last_tok),
+                    self._load("active", self._active),
+                    self._load("keys", self._slot_keys),
+                    self._load("poison", self._poison_mask(1)))
+            _, aux, self.cache = self._with_retries(
+                "decode", "slot_decode", lambda: self._decode(*args))
             self.counters["device_calls"] += 1
             aux_np = aux.cpu().numpy()       # ONE readback: (token, finite)
             self.counters["host_syncs"] += 1
-            slots = np.flatnonzero(self._active)
-            self._check_finite(aux_np[slots, 1], slots)
-            for slot in slots:
+            sentinel = self.ec.numeric_sentinel != "off"
+            for slot in np.flatnonzero(self._active):
                 req = self._slot_req[slot]
+                if sentinel and not aux_np[slot, 1]:
+                    quarantined.append(self._quarantine(slot, now))
+                    finished.append(req)
+                    continue
                 tok = int(aux_np[slot, 0])
                 req.out_tokens.append(tok)
                 self.counters["tokens_out"] += 1
@@ -672,6 +888,8 @@ class Engine:
                     self._evict(slot, now)
                     finished.append(req)
         self._step_count += 1
+        self._maybe_snapshot()
+        self._raise_if_strict(quarantined)
         return finished
 
     def step_block(self, now: float | None = None) -> List[Request]:
@@ -690,6 +908,7 @@ class Engine:
             # nothing to decode: advance one step so arrival admission keeps
             # fine-grained timing while the engine drains the future queue
             self._step_count += 1
+            self._maybe_snapshot()
             return finished
         n = self.ec.n_slots
         rem = np.zeros((n,), np.int32)
@@ -700,21 +919,43 @@ class Engine:
             rem[s] = req.max_new_tokens - len(req.out_tokens)
             eos[s] = -1 if req.eos_token is None else req.eos_token
         self._sync_tab()
-        block, _, self.cache = self._decode_multi(
-            self.params, self.cache, self._load("token", self._last_tok),
-            self._load("active", self._active), self._load("remaining", rem),
-            self._load("eos", eos), self._load("keys", self._slot_keys))
+        args = (self.params, self.cache, self._load("token", self._last_tok),
+                self._load("active", self._active),
+                self._load("remaining", rem), self._load("eos", eos),
+                self._load("keys", self._slot_keys),
+                self._load("poison", self._poison_mask(K)))
+        block, _, self.cache = self._with_retries(
+            "decode", "slot_decode_multi", lambda: self._decode_multi(*args))
         self.counters["device_calls"] += 1
         # ONE readback: [K, B, (tok, emit, finite)]
         block_np = block.cpu().numpy()
         self.counters["host_syncs"] += 1
+        quarantined = self._replay_block(block_np, slots, K, now, finished)
+        self._step_count += K
+        self._maybe_snapshot()
+        self._raise_if_strict(quarantined)
+        return finished
+
+    def _replay_block(self, block_np: np.ndarray, slots, K: int, now: float,
+                      finished: List[Request]) -> List[Request]:
+        """Replay rows 0..K-1 of a readback block (``(token, emitted,
+        finite)``) into the slots' requests: append the emitted tokens,
+        evict the finished, and quarantine a slot at its first non-finite
+        row (its tokens before that row match the fault-free stream; the
+        row's own token was sampled from poisoned logits and is dropped).
+        Returns the quarantined requests."""
+        sentinel = self.ec.numeric_sentinel != "off"
+        quarantined: List[Request] = []
         for s in slots:
             req = self._slot_req[s]
             for j in range(K):
                 if not block_np[j, s, 1]:
                     break
                 t_j = now + j if self.ec.clock == "steps" else self._now()
-                self._check_finite(block_np[j, s, 2:3], [s])
+                if sentinel and not block_np[j, s, 2]:
+                    quarantined.append(self._quarantine(s, t_j))
+                    finished.append(req)
+                    break
                 tok = int(block_np[j, s, 0])
                 req.out_tokens.append(tok)
                 self.counters["tokens_out"] += 1
@@ -723,8 +964,7 @@ class Engine:
                     self._evict(s, t_j)
                     finished.append(req)
                     break
-        self._step_count += K
-        return finished
+        return quarantined
 
     def step_spec(self, now: float | None = None) -> List[Request]:
         """Admit due requests, then run ONE draft / verify round
@@ -740,6 +980,7 @@ class Engine:
         K = self.ec.spec_k
         if not self._active.any():
             self._step_count += 1
+            self._maybe_snapshot()
             return finished
         n = self.ec.n_slots
         rem = np.zeros((n,), np.int32)
@@ -750,34 +991,28 @@ class Engine:
             rem[s] = req.max_new_tokens - len(req.out_tokens)
             eos[s] = -1 if req.eos_token is None else req.eos_token
         self._sync_tab()
-        block, _, self.cache, self.cache_draft = self._decode_spec(
-            self.params, self.draft_params, self.cache, self.cache_draft,
-            self._load("token", self._last_tok),
-            self._load("active", self._active), self._load("remaining", rem),
-            self._load("eos", eos), self._load("keys", self._slot_keys))
+        args = (self.params, self.draft_params, self.cache, self.cache_draft,
+                self._load("token", self._last_tok),
+                self._load("active", self._active),
+                self._load("remaining", rem), self._load("eos", eos),
+                self._load("keys", self._slot_keys),
+                self._load("poison", self._poison_mask(K)))
+        block, _, self.cache, self.cache_draft = self._with_retries(
+            "decode", "slot_decode_spec", lambda: self._decode_spec(*args))
         self.counters["device_calls"] += 1
         block_np = block.cpu().numpy()          # ONE readback
         self.counters["host_syncs"] += 1
+        # rows 0..K-1 as step_block's (the finite lane over the VERIFY
+        # logits); row K the acceptance bookkeeping
+        quarantined = self._replay_block(block_np, slots, K, now, finished)
         for s in slots:
-            req = self._slot_req[s]
-            for j in range(K):
-                if not block_np[j, s, 1]:
-                    break
-                t_j = now + j if self.ec.clock == "steps" else self._now()
-                self._check_finite(block_np[j, s, 2:3], [s])
-                tok = int(block_np[j, s, 0])
-                req.out_tokens.append(tok)
-                self.counters["tokens_out"] += 1
-                self._last_tok[s] = tok
-                if self._is_done(req, tok):
-                    self._evict(s, t_j)
-                    finished.append(req)
-                    break
             n_match, drafted = int(block_np[K, s, 0]), int(block_np[K, s, 1])
             self.counters["tokens_drafted"] += drafted
             self.counters["tokens_accepted"] += n_match
             self.counters["tokens_rolled_back"] += drafted - n_match
         self._step_count += K
+        self._maybe_snapshot()
+        self._raise_if_strict(quarantined)
         return finished
 
     @property
@@ -887,16 +1122,6 @@ class Engine:
             f"length <= s_max={self.ec.s_max}; steps.admit_pad_shapes "
             f"broke its own invariant")
 
-    def _check_finite(self, lane, slots) -> None:
-        """The finite lane is never ignored unless the sentinel is off: a
-        zero raises (quarantining the slot waits for the resilience slice)."""
-        if self.ec.numeric_sentinel == "off" or all(lane):
-            return
-        bad = [int(self._slot_req[s].uid) for s, ok in zip(slots, lane)
-               if not ok]
-        raise ERR.NumericHealthError(
-            f"non-finite logits for uid(s) {bad} at step {self._step_count}")
-
     def _is_done(self, req: Request, tok: int) -> bool:
         if req.eos_token is not None and tok == req.eos_token:
             req.finish_reason = "eos"
@@ -936,6 +1161,12 @@ class Engine:
             if not free:
                 break
             shared = 0
+            if self._faults is not None \
+                    and self._faults.exhausted(self._step_count):
+                # injected pool exhaustion: defer the head exactly like a
+                # failed reservation (in the dense layout too)
+                req.deferred = True
+                break
             if self._alloc is not None:
                 shared = self._alloc.admit(free[0], req.prompt,
                                            self._reserve_rows(req))
@@ -996,12 +1227,14 @@ class Engine:
             (self._dev(pos0),) if self._alloc is not None else ())
         if self.spec:
             # both models prefill; the first token is the full model's
-            logits, tokens, self.cache, self.cache_draft = self._admit_spec(
-                self.params, self.draft_params, self.cache, self.cache_draft,
-                *args)
+            logits, tokens, self.cache, self.cache_draft = self._with_retries(
+                "admit", "slot_admit_spec", lambda: self._admit_spec(
+                    self.params, self.draft_params, self.cache,
+                    self.cache_draft, *args))
         else:
-            logits, tokens, self.cache = self._admit_step(
-                self.params, self.cache, *args)
+            logits, tokens, self.cache = self._with_retries(
+                "admit", "slot_admit", lambda: self._admit_step(
+                    self.params, self.cache, *args))
         self.counters["device_calls"] += 1
         if self.ec.temperature > 0.0:
             # the first token occupies position pos0 + length (the whole
@@ -1042,6 +1275,104 @@ class Engine:
             # frozen slot's writes land in the pool's sink block
             self._alloc.release(slot)
             self._tab_dirty = True
+
+    # ------------------------------------------------- resilience (§12)
+
+    def _poison_mask(self, k: int) -> np.ndarray:
+        """The fault plan's NaN mask for the decode block that starts at the
+        current step and spans ``k`` steps; all False without a plan (the
+        steps' logits then pass untouched, bitwise)."""
+        if self._faults is None:
+            return self._zero_poison
+        return self._faults.poison_mask(self._step_count, k,
+                                        self.ec.n_slots)
+
+    def _with_retries(self, site: str, name: str, call: Callable):
+        """Run one step call through the fault plan's transient-failure
+        site with the bounded retry budget: each injected failure takes one
+        retry (and the backoff), more than ``device_retries`` raises
+        ``DeviceStepError``. Without a plan, or when nothing fires, a plain
+        call: the step runs once either way, so a retried block writes the
+        caches once."""
+        fails = (self._faults.transient_failures(site, self._step_count)
+                 if self._faults is not None else 0)
+        for attempt in range(fails):
+            if attempt >= self.ec.device_retries:
+                raise ERR.DeviceStepError(
+                    f"{name} at site {site!r}, step {self._step_count}: "
+                    f"still failing after {attempt} retries (budget "
+                    f"device_retries={self.ec.device_retries})")
+            self.counters["transient_retries"] += 1
+            if self.ec.retry_backoff_s > 0:
+                time.sleep(self.ec.retry_backoff_s * (2 ** attempt))
+        return call()
+
+    def _quarantine(self, slot: int, now: float) -> Request:
+        """Evict a slot whose finite lane reported non-finite logits: its
+        request ends ``failed_numeric`` with the tokens before the poisoned
+        row, and its blocks return to the pool. The other slots are
+        untouched: each slot's arithmetic is its own."""
+        req = self._slot_req[slot]
+        req.finish_reason = "numeric"
+        self.counters["quarantined"] += 1
+        self._evict(slot, now, status="failed_numeric")
+        return req
+
+    def _raise_if_strict(self, quarantined: List[Request]) -> None:
+        """Strict sentinel: raise AFTER the replay loop, so evictions,
+        counters and blocks are consistent and the caller can snapshot or
+        serve on with the healthy slots."""
+        if quarantined and self.ec.numeric_sentinel == "strict":
+            raise ERR.NumericHealthError(
+                f"non-finite logits quarantined uid(s) "
+                f"{sorted(r.uid for r in quarantined)} at step "
+                f"{self._step_count}; slots evicted failed_numeric")
+
+
+def _cache_state(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Host copies of a cache's state tensors (the configuration's host
+    scalars left out): what a snapshot keeps of it."""
+    return {name: t.detach().to("cpu", copy=True)
+            for name, t in cache.items() if name not in _CACHE_CONSTS}
+
+
+def _copy_cache(cache: Dict[str, torch.Tensor], state, what: str) -> None:
+    """Copy a snapshot's cache state into ``cache``'s own tensors, in place
+    (CUDA graphs hold their addresses). The leaves are torch tensors or
+    numpy arrays on any device. A leaf may be smaller than the engine's
+    along one axis where the reference lays the cache out smaller: the
+    dense cache's rows (the port rounds them up to ``kv_block`` and adds a
+    speculative engine's lookahead rows) and the paged pool's blocks (the
+    port's last block is its write-only sink). Those rows lie past every
+    slot's reach, are never read before written, and are zeroed; any other
+    mismatch raises."""
+    want = sorted(n for n in cache if n not in _CACHE_CONSTS)
+    if sorted(state) != want:
+        raise ValueError(f"{what}: snapshot holds {sorted(state)}, the "
+                         f"engine's cache {want}")
+    for name in want:
+        dst, src = cache[name], state[name]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.ascontiguousarray(src))
+        if src.dtype != dst.dtype:
+            raise ValueError(f"{what}[{name!r}]: snapshot dtype {src.dtype}, "
+                             f"the engine's {dst.dtype}")
+        if src.shape == dst.shape:
+            dst.copy_(src)
+            continue
+        axis = {"k": 2, "v": 2, "kp": 1, "vp": 1, "ks": 1, "vs": 1}.get(name)
+        fits = (axis is not None and src.dim() == dst.dim()
+                and src.shape[axis] < dst.shape[axis]
+                and all(a == b for i, (a, b) in enumerate(zip(src.shape,
+                                                              dst.shape))
+                        if i != axis))
+        if not fits:
+            raise ValueError(f"{what}[{name!r}]: snapshot shape "
+                             f"{tuple(src.shape)} does not fit the engine's "
+                             f"{tuple(dst.shape)}")
+        n = src.shape[axis]
+        dst.narrow(axis, 0, n).copy_(src)
+        dst.narrow(axis, n, dst.shape[axis] - n).zero_()
 
 
 # ---------------------------------------------------------------------------

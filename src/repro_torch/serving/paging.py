@@ -275,6 +275,11 @@ class PagedAllocator:
             pass
         if not free:
             raise RuntimeError("paged KV pool exhausted during copy-on-write")
+        if self.ref[b] == 1:
+            # the eviction dropped the registry's pin on ``b``: the slot owns
+            # it alone now and writes it in place (the reference decrements
+            # the pin again and leaks the block off the free list)
+            return b, b
         nb_ = free.pop()
         self.ref[b] -= 1
         self.ref[nb_] = 1

@@ -85,23 +85,27 @@ def build_slot_decode_spec(cfg: ModelConfig, draft_cfg: ModelConfig,
     ``steps.make_slot_decode_spec``).
 
     slot_decode_spec(model, draft, cache, draft_cache, token [B], active
-    [B], remaining [B], eos [B], keys [B, 2] = None) -> (block [K+1, B, 3]
-    int32, active [B] bool, cache, draft_cache), both caches updated in
+    [B], remaining [B], eos [B], keys [B, 2] = None, poison [B] bool = None)
+    -> (block [K+1, B, 3] int32, active [B] bool, cache, draft_cache), both
+    caches updated in
     place (``pos`` included). Rows 0..K-1 of ``block`` are ``(token,
     emitted, finite)``, the ``make_slot_decode_multi`` contract, with the
     finite lane over the VERIFY logits (committed tokens are verify
     samples); row K is ``(n_match, drafted, 1)`` per slot: the whole round
-    reads back once. ``consts`` / ``draft_consts``: each cache's
-    ``model.slot_consts`` (default: built at every call). The reference's
-    ``poison`` argument (fault injection) belongs to the resilience slice
-    and is not ported. No host read, so a CUDA graph captures the round."""
+    reads back once. ``poison``: the fault-injection mask
+    (``serving.faults``), True rows' VERIFY logits NaN-poisoned
+    (``steps.poison_logits``) before sampling and the finite lane, as the
+    reference's ``where(poison[:, None, None], nan, vlogits)``; an
+    all-False mask is a bitwise no-op. ``consts`` / ``draft_consts``: each
+    cache's ``model.slot_consts`` (default: built at every call). No host
+    read, so a CUDA graph captures the round."""
     K = int(k_draft)
     if K < 1:
         raise ValueError(f"k_draft must be >= 1, got {k_draft}")
 
     @torch.inference_mode()
     def slot_decode_spec(model, draft, cache, draft_cache, token, active,
-                         remaining, eos, keys=None):
+                         remaining, eos, keys=None, poison=None):
         c = ST._consts(cfg, cache, consts)
         dc = ST._consts(draft_cfg, draft_cache, draft_consts)
         pos = cache["pos"]
@@ -120,6 +124,7 @@ def build_slot_decode_spec(cfg: ModelConfig, draft_cfg: ModelConfig,
         # samples it (its logits rows, its noise at position pos + 1 + t)
         vlogits, cache = MD.verify_step_slots(
             cfg, model, cache, torch.cat([t0[:, None], drafts], dim=1), c)
+        vlogits = ST.poison_logits(vlogits, poison)
         verify = torch.stack(
             [ST.sample_tokens(vlogits[:, t], temperature, keys, pos + 1 + t)
              for t in range(K + 1)], dim=1)                     # [B, K+1]

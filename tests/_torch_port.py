@@ -142,18 +142,22 @@ def run_trace(engine, reqs, eos_for=None):
     return done
 
 
-def ref_engine(rcfg, params, draft=None, **kw):
+def ref_engine(rcfg, params, draft=None, faults=None, **kw):
     """A reference Engine ready to serve on this host: trace_guard off (its
     jit bookkeeping is not under test) and the activation mesh cleared (the
     host mesh's sharding constraints fail under some jax versions; clearing
     it is harmless where they do not). ``draft``: a speculative draft's
-    (cfg, params)."""
+    (cfg, params); ``faults``: a reference ``FaultPlan``."""
     eng = RefEngine(RefEngineConfig(trace_guard="off", **kw), cfg=rcfg,
                     params=params, draft_cfg=draft[0] if draft else None,
-                    draft_params=draft[1] if draft else None)
+                    draft_params=draft[1] if draft else None, faults=faults)
     ref_numerics.set_activation_mesh(None)
     return eng
 
 
-def port_engine(pcfg, model, **kw):
-    return Engine(EngineConfig(**kw), cfg=pcfg, params=model, device="cpu")
+def port_engine(pcfg, model, draft=None, faults=None, **kw):
+    """The port's Engine on the CPU (``draft``, ``faults``: as
+    :func:`ref_engine`'s, the port's own)."""
+    return Engine(EngineConfig(**kw), cfg=pcfg, params=model, device="cpu",
+                  draft_cfg=draft[0] if draft else None,
+                  draft_params=draft[1] if draft else None, faults=faults)

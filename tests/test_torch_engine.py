@@ -179,14 +179,16 @@ def test_deadlines_shed_and_bounded_queue(small_model):
 #: (EngineConfig values, what construction raises): what a later slice
 #: adds still raises NotImplementedError; a ``spec_draft`` directory is
 #: served (tests/test_torch_ckpt.py), so a missing one raises
-#: FileNotFoundError, as the reference's ``load`` does
+#: FileNotFoundError, as the reference's ``load`` does; periodic snapshots
+#: are served (tests/test_torch_snapshot.py), so one without a directory
+#: raises ValueError, as the reference's constructor does
 CONFIG_CASES = [
     (dict(kv_layout="paged", spec_draft="/x"), FileNotFoundError),
     (dict(kv_dtype="int8", kv_layout="paged", mesh="data=2,model=2"),
      NotImplementedError),
     (dict(spec_draft="/x"), FileNotFoundError),
     (dict(mesh="data=2,model=2"), NotImplementedError),
-    (dict(snapshot_every_steps=4, snapshot_dir="/x"), NotImplementedError),
+    (dict(snapshot_every_steps=4), ValueError),
     (dict(trace_guard="count"), NotImplementedError),
     (dict(trace_guard="strict"), NotImplementedError),
 ]
@@ -198,15 +200,18 @@ CONFIG_CASES = [
          for kw, _ in CONFIG_CASES])
 def test_unsupported_engine_config_values_raise(small_model, kw, error):
     pcfg, model = small_model
-    match = ("no committed checkpoint" if error is FileNotFoundError
-             else "not served by this slice")
+    match = {FileNotFoundError: "no committed checkpoint",
+             ValueError: "requires snapshot_dir",
+             NotImplementedError: "not served by this slice"}[error]
     with pytest.raises(error, match=match):
         Engine(_small(**kw), cfg=pcfg, params=model, device="cpu")
 
 
 def test_unsupported_constructor_arguments_raise(small_model):
     pcfg, model = small_model
-    with pytest.raises(NotImplementedError, match="fault plan"):
+    # a fault plan is served (tests/test_torch_faults.py): it must be the
+    # port's own FaultPlan
+    with pytest.raises(TypeError, match="FaultPlan"):
         Engine(_small(), cfg=pcfg, params=model, device="cpu", faults=object())
     # a draft model given in-process is served (tests/test_torch_spec.py);
     # its parameters without its config are refused, as by the reference
@@ -229,21 +234,34 @@ def test_engine_config_keeps_the_reference_fields():
 
 @pytest.mark.parametrize("mode", ["count", "strict", "off"])
 def test_non_finite_logits_raise_unless_sentinel_off(small_model, mode):
+    """Non-finite logits, as the reference's sentinel ladder treats them:
+    "count" quarantines the slot (``failed_numeric``, its tokens kept up to
+    the poisoned row), "strict" does the same and then raises
+    NumericHealthError, "off" serves what was sampled."""
     pcfg, model = small_model
     eng = Engine(_small(numeric_sentinel=mode, decode_block=4), cfg=pcfg,
                  params=model, device="cpu")
-    eng.submit(np.arange(4, dtype=np.int32), 6)
+    req = eng.submit(np.arange(4, dtype=np.int32), 6)
     eng.step_block()                              # admission + a clean block
+    assert len(req.out_tokens) == 5
     saved = eng.params.final_ln.scale.clone()
     eng.params.final_ln.scale.fill_(float("nan"))
     try:
-        if mode == "off":
-            eng.step_block()
-        else:
-            with pytest.raises(ERR.NumericHealthError):
+        if mode == "strict":
+            with pytest.raises(ERR.NumericHealthError, match="uid"):
                 eng.step_block()
+        else:
+            eng.step_block()
     finally:
         eng.params.final_ln.scale.copy_(saved)
+    if mode == "off":
+        assert req.status == "ok" and len(req.out_tokens) == 6
+        assert eng.counters["quarantined"] == 0
+    else:
+        assert req.status == "failed_numeric"
+        assert req.finish_reason == "numeric"
+        assert len(req.out_tokens) == 5 and eng.counters["quarantined"] == 1
+        assert eng.idle
 
 
 def test_default_seeded_init_is_reproducible():

@@ -82,3 +82,20 @@ def test_state_dict_equals_the_reference_after_every_op(seed):
     restored = PagedAllocator(**geom)
     restored.load_state(ref.state_dict())
     assert restored.state_dict() == mine.state_dict()
+
+
+#: a trace on which the reference allocator's copy-on-write leaks a block:
+#: the registry eviction inside ``ensure_writable`` drops the block's pin,
+#: the pin is decremented again, and the block ends with ref 0 off the free
+#: list (found by the reference's own property test)
+LEAKING_TRACE = (20583, (0, 3, 1, 0, 2, 3, 0, 4, 3, 3, 0, 4))
+
+
+def test_copy_on_write_after_an_eviction_keeps_every_invariant(monkeypatch):
+    inner = RT.test_random_traces_hold_invariants.hypothesis.inner_test
+    seed, ops = LEAKING_TRACE
+    monkeypatch.setattr(RT, "PagedAllocator", RefAllocator)
+    with pytest.raises(AssertionError, match="ref=0 free=False"):
+        inner(seed, list(ops))
+    monkeypatch.setattr(RT, "PagedAllocator", PagedAllocator)
+    inner(seed, list(ops))
