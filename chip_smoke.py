@@ -148,8 +148,27 @@ one JSON line:
             pool, greedy, and the dense cache at temperature 0.7 (with
             --profile, one decode block of the dense cache and one of the
             paged int8 pool under torch.profiler)
-  compress  MergeMoE on qwen3-moe-30b-a3b at full width, depth cut to 4
-            layers (COMPRESS_LAYERS): calibration captured on the card through the
+  train     the trainer (launch.train.train, the reference's training
+            arithmetic: no hand-written kernel, each block under the
+            config's remat): reduced qwen3-moe and granite-8b in fp32, 5
+            AdamW steps on the card against the same 5 on the CPU (losses
+            and every parameter within REHEARSE_LOSS_RTOL /
+            REHEARSE_PARAM_ATOL); the resume drill on the card under
+            torch.use_deterministic_algorithms(True) (RESUME_K steps, the
+            trainer's checkpoint to a temporary directory, a fresh trainer,
+            RESUME_K more, against 2 * RESUME_K straight: bitwise or the
+            differing leaves named with their gaps); then qwen3-moe-30b-a3b
+            at its published widths, COMPRESS_LAYERS layers, bf16, remat
+            "full", capacity dispatch, AdamW, gradients in bf16,
+            TRAIN_STEPS steps of SyntheticLM(seed) at TRAIN_BATCH x
+            TRAIN_SEQ: every loss finite, the last TRAIN_LOSS_DROP below
+            the first, no hand-written kernel launched; ms per step, tokens/s,
+            peak memory. Its model goes on to the compress phase
+  compress  MergeMoE on the train phase's model (qwen3-moe-30b-a3b at full
+            width, depth cut to 4 layers, COMPRESS_LAYERS), trained: the
+            held-out loss of both models on a SyntheticLM batch beside the
+            uniform-token one, and C4, the paged int8 pool's teacher-forced
+            top-1 against the bf16 engine (a reading). Calibration captured on the card through the
             model's forward with the config's own capacity dispatch (the
             flash kernel in every layer), the suffix merged 128 -> 64 in fp64
             on the host, held-out loss of both models; MergeMoE's in-sample
@@ -3503,6 +3522,222 @@ def spec_merged(cfg, model, ncfg, nmodel, trace, device, card,
 
 
 # ---------------------------------------------------------------------------
+# training: the trainer on the card, its model handed to compression
+# ---------------------------------------------------------------------------
+
+#: the full-width train phase (qwen3-moe at COMPRESS_LAYERS layers, the
+#: config's remat "full" and capacity dispatch, AdamW at the trainer's lr,
+#: grads rounded to bf16): steps, global batch, sequence length
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 64, 8, 256
+#: the last loss must sit at least this far below the first (nats)
+TRAIN_LOSS_DROP = 1.0
+#: the reduced fp32 rehearsal: steps, learning rate, batch x sequence
+REHEARSE_STEPS, REHEARSE_LR, REHEARSE_SHAPE = 5, 1e-3, (4, 32)
+#: card against CPU, fp32: losses relative; parameters absolute, a tenth of
+#: the learning rate (AdamW moves a parameter by about lr * sign(g) where
+#: |g| is near its eps, so a gradient of 1e-8 summed in another order moves
+#: that parameter by a part of lr)
+REHEARSE_LOSS_RTOL, REHEARSE_PARAM_ATOL = 1e-4, 0.1 * REHEARSE_LR
+#: the resume drill: k steps, a checkpoint, a fresh trainer, k more
+RESUME_K = 2
+
+
+def rehearse_train_config(**kw):
+    from repro_torch.launch import train as LT
+    return LT.TrainConfig(**{**dict(global_batch=REHEARSE_SHAPE[0],
+                                    seq_len=REHEARSE_SHAPE[1],
+                                    lr=REHEARSE_LR, log_every=10 ** 6,
+                                    dtype="float32"), **kw})
+
+
+def flat_leaves(tree, prefix="") -> dict:
+    """A reference-layout tree (nested dicts) as {dotted name: tensor}."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def leaf_gaps(want: dict, got: dict) -> dict:
+    """{leaf: max |want - got|} over the leaves that are not bitwise equal
+    (int leaves must be equal: a gap there is inf)."""
+    gaps = {}
+    for name, a in want.items():
+        a, b = a.detach().cpu(), got[name].detach().cpu()
+        if torch.equal(a, b):
+            continue
+        gaps[name] = (float((a.double() - b.double()).abs().max())
+                      if a.is_floating_point() else float("inf"))
+    return gaps
+
+
+def model_leaves(model) -> dict:
+    from repro_torch import convert
+    return flat_leaves(convert.reference_tree(model))
+
+
+def train_card_vs_cpu(arch: str, device) -> dict:
+    """The trainer (``launch.train.train``) on the reduced fp32 config, the
+    same REHEARSE_STEPS steps on the card and on the CPU from the same
+    weights: a step-0 checkpoint of the CPU's initialisation (a generator
+    on the card draws other numbers), which each trainer resumes. Losses
+    and every parameter within the stated tolerances."""
+    from repro_torch import convert
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.data.pipeline import DataState
+    from repro_torch.launch import train as LT
+    root = tempfile.mkdtemp(prefix="train_rehearse_",
+                            dir=tempfile.gettempdir())
+    atexit.register(shutil.rmtree, root, True)
+    _, model, state, _ = LT.build(rehearse_train_config(arch=arch,
+                                                        device="cpu"))
+    CKPT.save(f"{root}/init", 0, (convert.reference_tree(model), state),
+              {"data_state": DataState().to_json()})
+    del model, state
+    runs = []
+    for i, dev in enumerate(("cpu", device)):
+        shutil.copytree(f"{root}/init", f"{root}/run{i}")
+        runs.append(LT.train(rehearse_train_config(
+            arch=arch, steps=REHEARSE_STEPS, device=dev,
+            ckpt_dir=f"{root}/run{i}", ckpt_every=10 ** 6)))
+    shutil.rmtree(root)
+    cpu, card = runs
+    loss_gap = max(abs(a - b) / abs(a)
+                   for a, b in zip(cpu["losses"], card["losses"]))
+    gaps = leaf_gaps(model_leaves(cpu["params"]), model_leaves(card["params"]))
+    worst = max(gaps.values(), default=0.0)
+    check(all(np.isfinite(card["losses"])), f"train {arch}: non-finite loss")
+    check(loss_gap <= REHEARSE_LOSS_RTOL,
+          f"train {arch}: card losses {card['losses']} against the CPU's "
+          f"{cpu['losses']} (relative gap {loss_gap})")
+    check(worst <= REHEARSE_PARAM_ATOL,
+          f"train {arch}: a parameter {worst} off the CPU's after "
+          f"{REHEARSE_STEPS} steps: {gaps}")
+    n = len(model_leaves(cpu["params"]))
+    return dict(steps=REHEARSE_STEPS, losses_card=card["losses"],
+                losses_cpu=cpu["losses"], max_loss_rel_gap=loss_gap,
+                max_param_abs_gap=worst, leaves=n,
+                leaves_bitwise_equal=n - len(gaps))
+
+
+def resume_drill(device) -> dict:
+    """RESUME_K steps, the trainer's checkpoint to a temporary directory, a
+    fresh trainer resuming it for RESUME_K more, against 2 * RESUME_K
+    straight, on the card under ``torch.use_deterministic_algorithms(True)``
+    (reduced fp32 qwen3-moe): losses, every parameter and every optimizer
+    state leaf, bitwise where they are; the ones that are not are named
+    with their gap, and must sit within the rehearsal's tolerance."""
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.launch import train as LT
+    root = tempfile.gettempdir()
+    check(shutil.disk_usage(root).free > 1e9,
+          f"train: the resume drill wants 1 GB free in {root}")
+    root = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    atexit.register(shutil.rmtree, root, True)
+    k = RESUME_K
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = LT.train(rehearse_train_config(
+            steps=2 * k, device=device, ckpt_dir=f"{root}/a", ckpt_every=k))
+        first = LT.train(rehearse_train_config(
+            steps=k, device=device, ckpt_dir=f"{root}/b", ckpt_every=k))
+        rest = LT.train(rehearse_train_config(
+            steps=2 * k, device=device, ckpt_dir=f"{root}/b", ckpt_every=k))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    resumed = first["losses"] + rest["losses"]
+    params = leaf_gaps(model_leaves(straight["params"]),
+                       model_leaves(rest["params"]))
+    sa = CKPT.load(f"{root}/a", device="cpu")[0][1]
+    sb = CKPT.load(f"{root}/b", device="cpu")[0][1]
+    state = leaf_gaps(flat_leaves(sa), flat_leaves(sb))
+    shutil.rmtree(root)
+    loss_gap = max(abs(a - b) / abs(a) for a, b in zip(straight["losses"],
+                                                       resumed))
+    check(len(resumed) == 2 * k and loss_gap <= REHEARSE_LOSS_RTOL,
+          f"train: resumed losses {resumed} against straight "
+          f"{straight['losses']}")
+    check(max(params.values(), default=0.0) <= REHEARSE_PARAM_ATOL,
+          f"train: resumed parameters off the straight run's: {params}")
+    return dict(k=k, deterministic_algorithms=True,
+                bitwise=(straight["losses"] == resumed and not params
+                         and not state),
+                losses_straight=straight["losses"], losses_resumed=resumed,
+                differing_param_leaves=params,
+                differing_state_leaves=state)
+
+
+def train_full_width(args, full_cfg, device, card):
+    """``launch.train.train`` at qwen3-moe's published widths, depth
+    COMPRESS_LAYERS: TRAIN_STEPS AdamW steps on SyntheticLM(seed) batches of
+    TRAIN_BATCH x TRAIN_SEQ. Every loss finite, the last TRAIN_LOSS_DROP
+    below the first, no hand-written kernel launched (the training
+    arithmetic is the reference's plain one). Returns (cfg, the trained
+    model, frozen, its line); the optimizer state and the gradients are
+    gone with the trainer."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+    free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = LT.train(LT.TrainConfig(
+        arch=ARCH, reduced=False, layers=COMPRESS_LAYERS, steps=TRAIN_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, optimizer="adamw",
+        device=device, seed=args.seed, log_every=16))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, model, losses = out["cfg"], out["params"], out["losses"]
+    check(cfg == full_cfg.replace(n_layers=COMPRESS_LAYERS)
+          and cfg.remat == "full" and cfg.moe.dispatch == "dense",
+          "the train phase trains the compress phase's config")
+    check(all(n == 0 for n in launches.values()),
+          f"train: hand-written kernels launched during the steps: "
+          f"{launches}")
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    check(losses[-1] <= losses[0] - TRAIN_LOSS_DROP,
+          f"train: the last loss {losses[-1]} is not {TRAIN_LOSS_DROP} "
+          f"below the first {losses[0]}")
+    steady = out["step_s"][1:]
+    line = dict(
+        card=card, model=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        remat=cfg.remat, dispatch=cfg.moe.dispatch, optimizer="adamw",
+        grad_dtype="bfloat16", params=sum(p.numel()
+                                          for p in model.parameters()),
+        steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        ms_per_step_median=1e3 * statistics.median(steady),
+        ms_per_step_min=1e3 * min(steady), ms_first_step=1e3 * out["step_s"][0],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(steady),
+        peak_allocated_gb=peak / 1e9, launches=launches,
+        seconds_total=wall)
+    del out
+    free()
+    return cfg, model, line
+
+
+def heldout_losses(cfg, model, ncfg, nmodel, device, seed) -> dict:
+    """The held-out loss of the full and the merged model on a SyntheticLM
+    batch the trainer never drew (its stream at step 10**6, the training
+    shape)."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as MD
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    data._state.step = 10 ** 6
+    batch = LT.to_device(next(data), device)
+    return dict(full=float(MD.loss(cfg, model, batch)[0]),
+                merged=float(MD.loss(ncfg, nmodel, batch)[0]))
+
+
+# ---------------------------------------------------------------------------
 # MergeMoE compression at full width
 # ---------------------------------------------------------------------------
 
@@ -3682,9 +3917,25 @@ def spec_from_artifact(cfg, model, ncfg, directory, trace, device, card,
                 acceptance_equal_in_process=True)
 
 
-def compress_phase(args, full_cfg, device, card, trace):
-    """The compression entry point at full width: calibration captured on
-    the card (``CalibrationStream`` over the model's forward with the
+def trained_c4(cfg, model, trace, device) -> dict:
+    """C4 on trained weights, a reading with no gate: the paged int8 pool's
+    teacher-forced top-1 against the dense bf16 engine (whose own stream
+    must read 1.0), on ``trace``."""
+    dense = serve(cfg, model, trace, device)
+    out = {form: top1(teacher_forced(cfg, model, trace, dense["tokens"],
+                                     device, kv=kv), dense["tokens"])
+           for form, kv in (("dense", None), ("paged int8 KV", "int8"))}
+    check(out["dense"] == 1.0, f"trained model: the dense engine's stream "
+                               f"teacher-forced reads {out['dense']}, not 1.0")
+    return dict(requests=len(trace), tokens=sum(map(len, dense["tokens"])),
+                teacher_forced_top1_vs_dense=out)
+
+
+def compress_phase(args, full_cfg, device, card, trace, cfg, handoff):
+    """The compression entry point at full width, on the train phase's
+    model (``cfg``; ``handoff``: a list holding the trained, frozen model,
+    popped here so that this phase holds its only reference and frees it
+    as it did its own random one): calibration captured on the card (``CalibrationStream`` over the model's forward with the
     config's own capacity dispatch, the flash kernel in every layer), the
     suffix merged 128 -> 64 by ``launch.compress.run`` (fp64 host solves),
     held-out loss of both models; the in-sample check on the first merged
@@ -3692,19 +3943,22 @@ def compress_phase(args, full_cfg, device, card, trace):
     it was merged from (``spec_merged``, its ``spec`` line), then served
     with int8 tables; the ``ckpt`` line: each of the two stored,
     loaded and served (``artifact_check``), and the bf16 one drafting from
-    its directory (``spec_from_artifact``). Returns the launches of the
-    compression run and of the serves, by kernel and by kernel and
+    its directory (``spec_from_artifact``). On the trained weights it also
+    reads the held-out loss of both models on a SyntheticLM batch beside
+    the uniform-token one, and C4 (``trained_c4``). Returns the launches of
+    the compression run and of the serves, by kernel and by kernel and
     route."""
     from repro_torch.ckpt import checkpoint as CKPT
     from repro_torch.core import calibration as CAL
     from repro_torch.kernels import ops
     from repro_torch.launch import compress as LC
-    cfg = full_cfg.replace(n_layers=COMPRESS_LAYERS)
+    model = handoff.pop()
     split = COMPRESS_SPLIT
     M = full_cfg.moe.n_experts // 2
+    check(cfg == full_cfg.replace(n_layers=COMPRESS_LAYERS),
+          "the compression phase's config")
     check(cfg.moe.dispatch == "dense",
           "the compression phase calibrates with the config's own dispatch")
-    model, build_s = build_model(cfg, device, args.seed)
     # the bf16 artifact takes at most 4 bytes a parameter of the full model
     # (bf16 leaves are fp32 .npy files); the int8 one is written after it
     # is deleted
@@ -3753,6 +4007,11 @@ def compress_phase(args, full_cfg, device, card, trace):
     rss = host_rss_gb()
     del stream
     free()
+    heldout = dict(uniform_tokens=dict(full=report["loss_full"],
+                                       merged=report["loss_compressed"]),
+                   synthetic_lm=heldout_losses(cfg, model, ncfg, nmodel,
+                                               device, args.seed))
+    c4 = trained_c4(cfg, model, trace[:COMPRESS_REQUESTS], device)
     # the compressed model served: bf16, then (after it drafted for the
     # full model) int8 tables
     served = {}
@@ -3803,7 +4062,8 @@ def compress_phase(args, full_cfg, device, card, trace):
          merged_layers=report["layers_merged"], n_experts=report["n_experts"],
          merged_experts=M, calib_tokens=report["calib_tokens"],
          calib_shape=[CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ],
-         seconds=dict(build=build_s, capture=t_capture,
+         weights="trained (the train phase)",
+         seconds=dict(capture=t_capture,
                       solve=report["t_merge_s"],
                       compress_total=report["t_total_s"],
                       eval_full=report["t_eval_base_s"],
@@ -3815,6 +4075,9 @@ def compress_phase(args, full_cfg, device, card, trace):
          bytes_original=report["bytes_original"],
          bytes_compressed=report["bytes_compressed"],
          compression_ratio=report["compression_ratio"],
+         heldout_loss=heldout, c4_trained=c4,
+         spec_acceptance={form: r["acceptance_rate"] for form, r in
+                          merged_spec["forms"].items()},
          peak_host_rss_gb=rss, launches=launches, in_sample=insample,
          served=served)
     total = dict(launches)
@@ -4260,6 +4523,10 @@ def main(argv=None) -> int:
 
     device = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products stay fp32
+    # the train phase's resume drill runs under
+    # torch.use_deterministic_algorithms(True), which asks cuBLAS for a fixed
+    # workspace: this one is the size PyTorch picks on sm_90 anyway
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     info = env.probe()
     emit("env", **info)
@@ -4517,10 +4784,23 @@ def main(argv=None) -> int:
     free()
     t_dense = time.perf_counter() - t0
 
-    # ---- compression: MergeMoE at full width, then the merged model served
+    # ---- train: the trainer on the card (reduced fp32 card vs CPU, the
+    # resume drill), then qwen3-moe at its published widths, 4 layers
     t0 = time.perf_counter()
-    compress_launches, compress_routes = compress_phase(args, full_cfg, device,
-                                                        card, trace)
+    emit("train", form="rehearse, reduced fp32, card vs CPU", card=card,
+         **{name: train_card_vs_cpu(name, device) for name in (ARCH, DENSE)},
+         resume=resume_drill(device))
+    tcfg, trained, line = train_full_width(args, full_cfg, device, card)
+    emit("train", form="full width", **line)
+    t_train = time.perf_counter() - t0
+
+    # ---- compression: MergeMoE on the trained model, then the merged model
+    # served
+    t0 = time.perf_counter()
+    handoff = [trained]
+    del trained
+    compress_launches, compress_routes = compress_phase(
+        args, full_cfg, device, card, trace, tcfg, handoff)
     for name, n in compress_launches.items():
         total_launches[name] += n
     add_routes(total_routes, compress_routes)
@@ -4608,7 +4888,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
         rehearse=t_rehearse, kernels=t_kernels, serve=t_serve, dense=t_dense,
-        compress=t_compress, variants=t_variants, resilience=t_resilience,
+        train=t_train, compress=t_compress, variants=t_variants,
+        resilience=t_resilience,
         total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ inside a layer are the reference's (``attn.wq wk wv wo``, ``moe.router wg wu
 wd remap live``, ``ln1 ln2 final_ln .scale``, ``embed.tok embed.head``).
 Every shape is checked and a missing or an extra leaf raises.
 
+Training state crosses both ways too: :func:`tree_to_torch` /
+:func:`tree_to_numpy` carry any tree of the reference's layout (an
+optimizer state: ``{"m", "v"}`` / ``{"na"}`` / adafactor's ``{"vr", "vc"}``
+leaves over stacked ``[L, ...]`` shapes, as ``repro_torch.optim`` builds it)
+between numpy arrays and torch tensors, leaf for leaf, dtypes kept.
+
 Int8 expert tables cross as the reference stores them: a stack whose tree
 holds ``moe.qexp.{wg,wu,wd,wg_scale,wu_scale,wd_scale}`` (from
 ``repro.core.quant.quantize_model_experts`` or an int8 compression plan)
@@ -28,9 +34,28 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from repro_torch.ckpt import treedef as TD
 from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, nest
+
+
+def tree_to_torch(tree, device="cpu"):
+    """A tree of numpy arrays (or anything ``np.asarray`` takes: the
+    reference's ``jax.Array`` leaves) as torch tensors on ``device``, each
+    leaf's dtype kept (bf16 leaves must arrive widened to fp32: numpy has no
+    bf16)."""
+    return TD.tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                       tree)
+
+
+def tree_to_numpy(tree):
+    """A tree of torch tensors as numpy arrays on the host (bf16 leaves
+    widened to fp32, exactly)."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return TD.tree_map(one, tree)
 
 
 def _flatten(tree, prefix="") -> Dict[str, Any]:
@@ -42,17 +67,6 @@ def _flatten(tree, prefix="") -> Dict[str, Any]:
         else:
             out[name] = val if isinstance(val, torch.Tensor) else np.asarray(val)
     return out
-
-
-def _nest(flat: Dict[str, Any]) -> dict:
-    tree: dict = {}
-    for name, val in flat.items():
-        node = tree
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = val
-    return tree
 
 
 def stack_tree(blocks, skip=()) -> dict:
@@ -67,7 +81,7 @@ def stack_tree(blocks, skip=()) -> dict:
         for name, t in named.items():
             if name not in skip:
                 per_layer.setdefault(name, []).append(t)
-    return _nest({name: torch.stack(ts) for name, ts in per_layer.items()})
+    return nest({name: torch.stack(ts) for name, ts in per_layer.items()})
 
 
 def unstacked_tree(model: Model) -> dict:
@@ -75,7 +89,7 @@ def unstacked_tree(model: Model) -> dict:
     under the reference's names, the model's own tensors. With
     :func:`stack_tree` for each stack it makes the tree
     :func:`from_reference_params` takes."""
-    return _nest({name: t for name, t in _targets(model).items()
+    return nest({name: t for name, t in _targets(model).items()
                   if name.split(".")[0] not in ("stack", "stack_c")})
 
 

@@ -1,22 +1,97 @@
-"""Distributed compression substrate: the MergeMoE solve-stage executor.
+"""Distributed compression substrate.
 
-``shard_layer_solves(thunks, n_shards)`` runs the per-layer expert-merge
-solve closures statically sharded over ``n_shards`` host threads and gathers
-the results back in layer order. The solves are independent fp64 host
-computations over replicated calibration inputs, so the gathered result is
-bit-identical to the sequential loop for ANY shard count.
+* ``ef_compressed(opt, seed=0)`` — optimizer wrapper implementing
+  ERROR-FEEDBACK quantization: the gradient is quantized to int8 (per-leaf
+  max-abs scaling, stochastic rounding from a key of the seed, the step and
+  the leaf's index), the quantization residual is accumulated into an
+  ``ef`` state and added back next step. The inner optimizer only ever sees
+  dequantized gradients.
 
-The port's copy of ``shard_layer_solves`` from the reference's
-``repro/distributed/compression.py`` (pure Python). The reference's int8
-error-feedback optimizer wrapper (``ef_compressed``) and int8 all-reduce
-(``compressed_psum``) belong to the training and mesh slices and are not
-ported yet.
+* ``shard_layer_solves(thunks, n_shards)`` — the MergeMoE solve-stage
+  executor: per-layer expert-merge solve closures statically sharded over
+  ``n_shards`` host threads, the results gathered back in layer order. The
+  solves are independent fp64 host computations over replicated
+  calibration inputs, so the gathered result is bit-identical to the
+  sequential loop for ANY shard count.
+
+The port's copy of the reference's ``repro/distributed/compression.py``.
+``quantize`` / ``ef_compressed`` give the reference's bits: a leaf is the
+reference's leaf (a layer stack's ``[L, ...]`` whole, so its max-abs scale
+is the stack's), its index is its place in JAX's flattening of the
+gradient tree (integer leaves counted), and the noise is
+``jax.random.uniform`` under the key ``fold_in(fold_in(PRNGKey(seed), step),
+index)``, computed by :mod:`repro_torch.core.threefry` bit for bit on any
+device. The int8 all-reduce (``compressed_psum``) belongs to the mesh
+slice and is not ported yet.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import threefry as TF
+from repro_torch.optim.optimizers import (Optimizer, _assemble, _diffable,
+                                          _state_device, tree_map)
+
+F32 = torch.float32
+I8_MAX = 127.0
+
+
+def quantize(g: torch.Tensor, key: torch.Tensor):
+    """Per-tensor max-abs int8 quantization with stochastic rounding: (q
+    int8, scale fp32 0-d). ``key``: a threefry key ``[2]``."""
+    g = g.to(F32)
+    # divided by tensors on g's device: a CUDA division by a host scalar is
+    # a multiplication by its reciprocal, which is not the reference's bits
+    i8 = torch.tensor(I8_MAX, dtype=F32, device=g.device)
+    scale = torch.clamp(torch.max(torch.abs(g)), min=1e-12) / i8
+    scaled = g / scale
+    noise = TF.uniform(key.to(g.device), g.numel()).reshape(g.shape) - 0.5
+    q = torch.clamp(torch.round(scaled + noise), -I8_MAX, I8_MAX).to(
+        torch.int8)
+    return q, scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(F32) * scale
+
+
+def ef_compressed(opt: Optimizer, seed: int = 0) -> Optimizer:
+    """Wrap ``opt`` with int8 error-feedback gradient compression. State:
+    ``{"inner": opt's state, "ef": residuals}`` (fp32, the parameters'
+    shapes; ``zeros(())`` for an integer leaf), as the reference's."""
+
+    def init(params):
+        ef = tree_map(lambda p: torch.zeros(
+            p.shape if _diffable(p) else (), dtype=F32, device=p.device),
+            params)
+        return {"inner": opt.init(params), "ef": ef}
+
+    def begin(grads, state, step):
+        base = TF.fold_in(TF.prng_key(seed, _state_device(grads)),
+                          torch.as_tensor(step))
+        index = itertools.count()
+
+        def compress(g, r):
+            i = next(index)
+            if not _diffable(g):
+                return g
+            corrected = g.to(F32) + r
+            q, scale = quantize(corrected, TF.fold_in(base, i))
+            deq = dequantize(q, scale)
+            r.copy_(corrected - deq)
+            return deq
+
+        return opt.begin(tree_map(compress, grads, state["ef"]),
+                         state["inner"], step)
+
+    return _assemble(init, begin, opt.leaf,
+                     lambda state: opt.leaf_state(state["inner"]),
+                     opt.state_factored)
 
 
 def shard_layer_solves(thunks: Sequence[Callable[[], Any]], n_shards: int

@@ -75,6 +75,19 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def check_no_grad(name: str, *tensors) -> None:
+    """A hand-written kernel has no backward: handed a tensor that requires
+    grad while autograd records, it raises (never detaches, never runs the
+    plain version in its place). The model's training path
+    (``train=True``) does not reach the kernels."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a hand-written kernel has no backward and was handed a "
+            f"tensor that requires grad; train through the model's training "
+            f"arithmetic (forward / loss with train=True)")
+
+
 def _check_x(name: str, x: torch.Tensor):
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "

@@ -87,6 +87,7 @@ def gather_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     kernel); w: [T, k] combine weights. Returns [T, d] in ``x.dtype``.
     Everything must be contiguous and on one CUDA device; raises
     otherwise."""
+    _common.check_no_grad("gather_swiglu", x, wg, wu, wd, w)
     if not x.is_cuda:
         raise ValueError("gather_swiglu kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
@@ -126,6 +127,7 @@ def _gather_q(x: torch.Tensor, qt, idx: torch.Tensor, w):
     (:func:`repro_torch.kernels.moe_tc.route_q`). Returns the per-pair rows
     ``[T, k, d]`` and, with ``w``, the combined ``[T, d]`` (the kernel's
     combine pass, on either route)."""
+    _common.check_no_grad("gather_swiglu_q", x, w)
     if not x.is_cuda:
         raise ValueError("gather_swiglu_q kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")

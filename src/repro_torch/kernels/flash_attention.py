@@ -151,6 +151,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     ``q.dtype`` (any strides with a contiguous last axis), else a new
     contiguous tensor. Returns it. Everything on one CUDA device; raises
     otherwise."""
+    _common.check_no_grad(FLASH.name, q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_attention kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")

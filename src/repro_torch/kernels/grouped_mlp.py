@@ -83,6 +83,7 @@ def grouped_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     summing to T (zeros are routine). Returns [T, d] in ``x.dtype``; rows
     beyond ``sum(group_sizes)`` are left unwritten. Everything must be
     contiguous and on one CUDA device; raises otherwise."""
+    _common.check_no_grad("grouped_swiglu", x, wg, wu, wd)
     if not x.is_cuda:
         raise ValueError("grouped_swiglu kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
@@ -121,6 +122,7 @@ def grouped_swiglu_q(x: torch.Tensor, qt,
     group_sizes: [E] integers summing to T. Returns [T, d] in ``x.dtype``.
     Everything must be contiguous and on one CUDA device; raises
     otherwise."""
+    _common.check_no_grad("grouped_swiglu_q", x)
     if not x.is_cuda:
         raise ValueError("grouped_swiglu_q kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")

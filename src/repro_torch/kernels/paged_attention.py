@@ -154,6 +154,7 @@ def paged_attention(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     hd] in ``q.dtype``; tab: [B, mb] integer block ids; lens: [B] valid
     rows. Returns [B, nq, hd] in ``q.dtype``. Everything must be contiguous
     and on one CUDA device; raises otherwise."""
+    _common.check_no_grad("paged_attention", q, kp, vp)
     if not q.is_cuda:
         raise ValueError("paged_attention kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")
@@ -170,6 +171,7 @@ def paged_attention_q(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                       lens: torch.Tensor) -> torch.Tensor:
     """Launch the int8 CUDA kernel. kp/vp: int8 [n_blocks, bs, nkv, hd];
     ks/vs: fp32 [n_blocks, bs, nkv]; the rest as :func:`paged_attention`."""
+    _common.check_no_grad("paged_attention_q", q)
     if not q.is_cuda:
         raise ValueError("paged_attention_q kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")

@@ -143,6 +143,7 @@ def swiglu_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     multiples of 8. Raises otherwise. ``round_gu``: g and u rounded to the
     model type before the activation (the model's arithmetic; the identity in
     fp32). Returns [T, d] in x's type."""
+    _common.check_no_grad("swiglu_mlp", x, wg, wu, wd)
     if not x.is_cuda:
         raise ValueError("swiglu_mlp kernel needs CUDA tensors "
                          "(kernels.ops routes CPU tensors to the plain version)")

@@ -1,5 +1,5 @@
-"""Step functions of the continuous-batching engine, and the CUDA graphs that
-replay them.
+"""Step functions: the train step (:func:`make_train_step`), and the steps of
+the continuous-batching engine with the CUDA graphs that replay them.
 
 Each ``make_*`` closes over the ModelConfig and returns the callable the
 engine invokes: the step's BODY, which runs eagerly under
@@ -34,8 +34,128 @@ from repro_torch.core import threefry as TF
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer
+from repro_torch.optim.optimizers import tree_map
 
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _at(tree, name: str):
+    for key in name.split("."):
+        tree = tree[key]
+    return tree
+
+
+def loss_and_grads(cfg: ModelConfig, model: MD.Model,
+                   batch: Dict[str, torch.Tensor], microbatches: int = 1):
+    """(loss, {"ce", "aux"}, grads) of ``model.loss`` under training, the
+    gradients as the reference's tree: nested dicts under its leaf names, a
+    layer stack's leaves stacked ``[L, ...]`` (each layer's gradient freed
+    once stacked), None at the integer leaves (the reference's float0).
+
+    ``microbatches > 1``: the batch's rows in that many consecutive chunks,
+    the gradients summed in fp32 and divided by their number, the loss and
+    metrics averaged, as the reference's accumulation does. The reference's
+    own accumulation adds the integer leaves' float0 gradients and fails on
+    an MoE model (ROADMAP C9); this one sums the floating leaves only."""
+    groups = MD.leaf_groups(MD.trainable(model))
+    params = [t for ts, _ in groups.values() for t in ts
+              if t.is_floating_point()]
+
+    def grads_of(b):
+        total, metrics = MD.loss(cfg, model, b, train=True)
+        gs = torch.autograd.grad(total, params, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for g, p in zip(gs, params)]
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}, gs
+
+    if microbatches == 1:
+        total, metrics, flat = grads_of(batch)
+    else:
+        n = batch["tokens"].shape[0] // microbatches
+        flat = [torch.zeros(p.shape, dtype=F32, device=p.device)
+                for p in params]
+        total = torch.zeros((), dtype=F32, device=params[0].device)
+        seen = []
+        for i in range(microbatches):
+            lo = i * n
+            t, m, gs = grads_of({k: v[lo:lo + n] for k, v in batch.items()})
+            for acc, g in zip(flat, gs):
+                acc.add_(g)
+            total = total + t
+            seen.append(m)
+        flat = [g / microbatches for g in flat]
+        total = total / microbatches
+        metrics = {k: torch.mean(torch.stack([m[k] for m in seen]))
+                   for k in seen[0]}
+    grads, i = {}, 0
+    for name, (tensors, stacked) in groups.items():
+        if not tensors[0].is_floating_point():
+            grads[name] = None
+            continue
+        layer = flat[i:i + len(tensors)]
+        flat[i:i + len(tensors)] = [None] * len(tensors)
+        i += len(tensors)
+        grads[name] = torch.stack(layer) if stacked else layer[0]
+        del layer
+    return total, metrics, MD.nest(grads)
+
+
+def apply_optimizer(opt: Optimizer, model: MD.Model, grads, opt_state,
+                    step) -> None:
+    """``opt.update`` then ``apply_updates`` on the model's own tensors, one
+    reference leaf at a time: the whole-tree part (``opt.begin``) once, then
+    for each floating leaf its parameters stacked as the reference's leaf
+    (a copy of that one leaf), ``opt.leaf`` writing its state in place, and
+    ``(p.float() + u).to(p.dtype)`` copied into each layer's tensor. The
+    values are the reference's functional update's; the peak holds one
+    leaf's copies, never a second copy of every parameter."""
+    grads, ctx = opt.begin(grads, opt_state, step)
+    per_leaf = opt.leaf_state(opt_state)
+    with torch.no_grad():
+        for name, (tensors, stacked) in MD.leaf_groups(model).items():
+            if not tensors[0].is_floating_point():
+                continue
+            p = torch.stack(tensors) if stacked else tensors[0]
+            u, _ = opt.leaf(_at(grads, name), _at(per_leaf, name), p, ctx)
+            for i, t in enumerate(tensors):
+                t.copy_((t.to(F32) + (u[i] if stacked else u)).to(t.dtype))
+            del p, u
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatches: int = 1,
+                    grad_transform: Optional[Callable] = None,
+                    grad_dtype: str = "bfloat16") -> Callable:
+    """Returns ``train_step(model, opt_state, batch, step) -> (model,
+    opt_state, loss, metrics)``, the reference's ``make_train_step``: the
+    model's parameters and the optimizer state (the reference's tree,
+    ``opt.init(models.model.shape_tree(model))``) are updated IN PLACE
+    (the reference's jit donates them) and handed back.
+
+    ``grad_dtype``: every floating gradient, the fp32 router's included, is
+    rounded to it before ``grad_transform`` and the optimizer, as the
+    reference's ``_cast_grads`` does (bf16 by default; "float32" keeps
+    them). ``microbatches``: :func:`loss_and_grads`. ``grad_transform``: a
+    hook on the averaged gradients' tree."""
+    gdt = getattr(torch, grad_dtype)
+
+    def cast(g):
+        return g if g is None or gdt == F32 else g.to(gdt)
+
+    def train_step(model, opt_state, batch, step):
+        loss, metrics, grads = loss_and_grads(cfg, model, batch,
+                                              microbatches)
+        grads = tree_map(cast, grads)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        apply_optimizer(opt, model, grads, opt_state, step)
+        return model, opt_state, loss, metrics
+
+    return train_step
 
 
 def admit_pad_shapes(buckets, s_max: int) -> Tuple[int, ...]:

@@ -3,10 +3,18 @@ per-slot decode and speculative verify over the dense cache or the paged KV
 pool, and the verify-shaped admission over the pool), SwiGLU MLP, embedding
 and LM head.
 
-``nn.Module``s own the parameters (``requires_grad=False``); the arithmetic is
-in plain functions on tensors that take the module as ``p``, mirroring the
+``nn.Module``s own the parameters (``requires_grad=False`` until a trainer
+turns it on: ``models.model.trainable``); the arithmetic is in plain
+functions on tensors that take the module as ``p``, mirroring the
 reference's ``*_apply(p, x)`` functions one for one. Precision policy as in
 :mod:`repro_torch.models.numerics`.
+
+``train=True`` (threaded from ``model.loss`` / the train step, never read
+from the grad mode) selects the reference's own training arithmetic on both
+devices: ``_sdpa`` for attention, the ``ein`` products of the MLP and an
+fp32 LM head, all differentiable. Without it a CUDA tensor goes to the
+hand-written kernels, which have no backward and raise when handed a
+tensor that requires grad.
 """
 from __future__ import annotations
 
@@ -135,8 +143,8 @@ def _sdpa(q, k, v, mask, n_rep: int):
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_rep: int,
-            causal: bool = True,
-            qoff: Optional[torch.Tensor] = None) -> torch.Tensor:
+            causal: bool = True, qoff: Optional[torch.Tensor] = None,
+            train: bool = False) -> torch.Tensor:
     """Full-sequence attention of the model path. q: ``[B, Sq, nq, hd]``;
     k / v: ``[B, Sk, nkv, hd]`` (head h reads kv head ``h // n_rep``);
     causal: query row i of batch row b sees the keys up to ``qoff[b] + i``
@@ -147,10 +155,12 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_rep: int,
     the activations in place (``kernels.flash_attention.attend``); a kernel
     failure raises. On a CPU tensor the reference's own model arithmetic,
     :func:`_sdpa`, runs, so that the CPU path stays token and logit equal
-    to the reference's model (which never calls its flash kernel)."""
+    to the reference's model (which never calls its flash kernel).
+    ``train``: :func:`_sdpa` on both devices (the reference trains through
+    it; the kernel has no backward)."""
     B, Sq, nq, hd = q.shape
     Sk = k.shape[1]
-    if q.is_cuda:
+    if q.is_cuda and not train:
         from repro_torch.kernels import flash_attention as FA
         out = torch.empty((B, Sq, nq, hd), dtype=q.dtype, device=q.device)
         FA.attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -170,10 +180,11 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_rep: int,
 
 def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq,
                positions=None, causal: bool = True,
-               kv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (forward / capture / loss). Returns
-    ``[B, S, d]``. Cross-attention (``kv``, the whisper decoder) is not
-    ported."""
+               kv: Optional[torch.Tensor] = None,
+               train: bool = False) -> torch.Tensor:
+    """Full-sequence self-attention (forward / capture / loss; ``train``:
+    see :func:`_attend`). Returns ``[B, S, d]``. Cross-attention (``kv``,
+    the whisper decoder) is not ported."""
     if kv is not None:
         raise NotImplementedError(
             "cross-attention (kv=...) belongs to the encoder-decoder family, "
@@ -186,7 +197,7 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq,
     if inv_freq is not None:
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-    out = _attend(q, k, v, n_rep, causal=causal)
+    out = _attend(q, k, v, n_rep, causal=causal, train=train)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
     return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
 
@@ -545,14 +556,16 @@ class MLP(nn.Module):
         self.wd = _param(dense_init((d_ff, d_model), dtype, device, generator))
 
 
-def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: MLP, x: torch.Tensor, train: bool = False) -> torch.Tensor:
     """SwiGLU MLP of ``x [..., d]``: the reference's model arithmetic on
     both devices, which rounds g and u to the model type (``ein``) before
     ``silu(g) * u``, so the MLP stays logit equal to the reference's model at
     bf16 too. The choice of code is by device, never a fallback (as
     :func:`_attend`): on a CUDA tensor the hand-written ``swiglu_mlp`` kernel
-    with its ``round_gu`` epilogue, on a CPU tensor the products below."""
-    if x.is_cuda:
+    with its ``round_gu`` epilogue, on a CPU tensor the products below.
+    ``train``: the products below on both devices (the kernel has no
+    backward)."""
+    if x.is_cuda and not train:
         from repro_torch.kernels import swiglu as SW
         return SW.mlp(x, p.wg, p.wu, p.wd, round_gu=True)
     g = ein("...d,df->...f", x, p.wg)
@@ -580,12 +593,17 @@ def embed_apply(p: Embed, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens.to(torch.long), p.tok)
 
 
-def lm_head(cfg: ModelConfig, p: Embed, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits [..., vocab]."""
-    if cfg.tie_embeddings:
-        logits = mm32(x, p.tok.t())
+def lm_head(cfg: ModelConfig, p: Embed, x: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
+    """fp32 logits [..., vocab]. ``train``: the product of the operands
+    widened to fp32 on both devices (the reference's CPU arithmetic, and
+    differentiable: ``numerics.mm32``'s ``out_dtype`` product has no
+    backward)."""
+    w = p.tok.t() if cfg.tie_embeddings else p.head
+    if train:
+        logits = x.to(F32) @ w.to(F32)
     else:
-        logits = mm32(x, p.head)
+        logits = mm32(x, w)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c

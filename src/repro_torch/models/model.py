@@ -2,8 +2,11 @@
 continuous batching (dense / moe families).
 
   Model(cfg, device, generator)                        -> module with random weights
-  forward(cfg, model, batch, capture)                  -> (logits, aux, captures)
-  loss(cfg, model, batch)                              -> (scalar, metrics)
+  forward(cfg, model, batch, capture, train)           -> (logits, aux, captures)
+  loss(cfg, model, batch, train)                       -> (scalar, metrics)
+  trainable(model, on)                                 -> model (requires_grad)
+  leaf_groups(model)                                   -> {reference leaf: tensors}
+  shape_tree(model)                                    -> reference-layout stand-ins
   init_slot_cache(cfg, n_slots, s_max, device)         -> cache dict
   slot_consts(cfg, cache)                              -> SlotConsts
   prefill_slots(cfg, model, tokens, lengths)           -> (logits, k, v)
@@ -23,12 +26,18 @@ dict handed in is the dict handed back, and every tensor in it keeps its
 storage from step to step (``pos`` too is written in place), so a CUDA graph
 captured over a step replays against the same cache. Given its
 ``SlotConsts`` (``inv_freq=`` / ``consts=``) and a device slot index, a
-step reads no tensor on the host and builds no tensor from host data. All
-forwards run under ``torch.inference_mode()``.
+step reads no tensor on the host and builds no tensor from host data. The
+serving forwards run under ``torch.inference_mode()``, and so do
+``forward`` / ``loss`` unless ``train=True``: then they build the autograd
+graph through the reference's training arithmetic on both devices (no
+hand-written kernel, each block under ``cfg.remat``), for the train step
+(``launch/steps.py :: make_train_step``). The parameters are frozen until
+:func:`trainable` turns ``requires_grad`` on for the floating ones.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+import contextlib
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -93,6 +102,57 @@ def init(cfg: ModelConfig, device, seed: int = 0) -> Model:
     return Model(cfg, device, gen)
 
 
+def trainable(model: Model, on: bool = True) -> Model:
+    """Turn ``requires_grad`` on (or off) for the model's floating
+    parameters; the integer ``remap`` / ``live`` are buffers and stay out of
+    autograd."""
+    for p in model.parameters():
+        p.requires_grad_(on and p.is_floating_point())
+    return model
+
+
+def leaf_groups(model: Model) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
+    """Every leaf of the reference's parameter tree by its dotted name
+    (``"stack.attn.wq"``, ``"embed.tok"``), in the model's own tensors:
+    ``(the layers' tensors in order, True)`` for a layer stack's leaf, which
+    the reference stacks along a leading ``[L, ...]`` axis, ``([tensor],
+    False)`` for the embedding and the final norm."""
+    named = dict(model.named_parameters())
+    named.update(dict(model.named_buffers()))
+    out: Dict[str, Tuple[List[torch.Tensor], bool]] = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in ("stack", "stack_c"):
+            ref = ".".join([parts[0]] + parts[2:])
+            out.setdefault(ref, ([], True))[0].append(t)
+        else:
+            out[name] = ([t], False)
+    return out
+
+
+def nest(flat: Dict[str, object]) -> dict:
+    """Dotted names -> nested dicts (the reference's tree)."""
+    tree: dict = {}
+    for name, val in flat.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = val
+    return tree
+
+
+def shape_tree(model: Model) -> dict:
+    """The reference's parameter tree of ``model`` as stand-ins that take
+    no memory: zero-stride tensors of each leaf's shape (stacked leaves
+    ``[L, ...]``), dtype and device, for ``Optimizer.init``."""
+    def stand_in(tensors, stacked):
+        t = tensors[0]
+        shape = ((len(tensors),) if stacked else ()) + tuple(t.shape)
+        return torch.zeros((), dtype=t.dtype, device=t.device).expand(shape)
+    return nest({name: stand_in(*g) for name, g in leaf_groups(model).items()})
+
+
 def _inv_freq(cfg: ModelConfig, device):
     return L.rope_freqs(cfg.hd, cfg.rope_theta, device=device)
 
@@ -117,33 +177,36 @@ def slot_consts(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> SlotConsts:
     return SlotConsts(inv_freq, int(cache["s_max"]), int(cache["kv_block"]))
 
 
-@torch.inference_mode()
 def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
-            capture: bool = False):
+            capture: bool = False, train: bool = False):
     """Full-sequence forward. batch: ``{"tokens": [B, S]}``. Returns (logits
     ``[B, S, V]`` fp32, aux loss (summed over the layers), captures or None).
     Captures: ``(expert_inputs [L, B, S, d], usage_counts [L, N])`` of every
-    MoE layer, ``stack`` then ``stack_c``."""
-    inv_freq = _inv_freq(cfg, batch["tokens"].device)
-    x = L.embed_apply(model.embed, batch["tokens"])
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    caps_list = []
-    for blocks in model.stacks():
-        x, a, caps = T.stack_apply(cfg, blocks, x, inv_freq=inv_freq,
-                                   capture=capture)
-        aux = aux + a
-        caps_list.append(caps)
-    caps = None
-    if capture and cfg.moe is not None:
-        caps = tuple(torch.cat(parts, dim=0) for parts in zip(*caps_list))
-    x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
-    return L.lm_head(cfg, model.embed, x), aux, caps
+    MoE layer, ``stack`` then ``stack_c``. ``train``: outside inference
+    mode, the training arithmetic, differentiable (module docstring)."""
+    with contextlib.nullcontext() if train else torch.inference_mode():
+        inv_freq = _inv_freq(cfg, batch["tokens"].device)
+        x = L.embed_apply(model.embed, batch["tokens"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        caps_list = []
+        for blocks in model.stacks():
+            x, a, caps = T.stack_apply(cfg, blocks, x, inv_freq=inv_freq,
+                                       capture=capture, train=train)
+            aux = aux + a
+            caps_list.append(caps)
+        caps = None
+        if capture and cfg.moe is not None:
+            caps = tuple(torch.cat(parts, dim=0) for parts in zip(*caps_list))
+        x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
+        return L.lm_head(cfg, model.embed, x, train=train), aux, caps
 
 
-def loss(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor]):
+def loss(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
+         train: bool = False):
     """Next-token cross-entropy (+ the MoE aux loss times its coefficient).
-    Returns (total, {"ce": ce, "aux": aux}), all fp32 scalars."""
-    logits, aux, _ = forward(cfg, model, batch)
+    Returns (total, {"ce": ce, "aux": aux}), all fp32 scalars. ``train``:
+    :func:`forward`'s."""
+    logits, aux, _ = forward(cfg, model, batch, train=train)
     tokens = batch["tokens"]
     targets = tokens[:, 1:].to(torch.long)
     lg = logits[:, :-1].to(torch.float32)

@@ -276,13 +276,19 @@ def _moe_gather(cfg: ModelConfig, p: MoE, xf: torch.Tensor, w: torch.Tensor,
 
 
 def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
-              capture: bool = False, need_aux: bool = True) -> MoEOutput:
+              capture: bool = False, need_aux: bool = True,
+              train: bool = False) -> MoEOutput:
     """x: [B, S, d] (or [B, 1, d] for decode).
 
     ``need_aux=False`` and ``capture=False`` (serving): :func:`route_infer`,
     ``aux_loss`` a constant zero. Otherwise :func:`route` and
     :func:`balance_loss`; ``capture=True`` adds the expert inputs ``x``, the
-    usage counts over the ORIGINAL experts and the top-k ids."""
+    usage counts over the ORIGINAL experts and the top-k ids. ``train``:
+    the shared experts' MLP in its training arithmetic
+    (``layers.mlp_apply``); the routing, the aux loss and capacity dispatch
+    carry gradients as they are (the top-k weights are the gathered
+    probabilities), while ``ragged`` / ``gather`` reach the hand-written
+    kernels on the card, which raise on a tensor that requires grad."""
     m = cfg.moe
     if m.ep_axis is not None or m.ep_degree > 1:
         raise NotImplementedError(
@@ -323,7 +329,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor,
         y = y.reshape(n_groups * G, d)[:T]
     y = y.reshape(B, S, d)
     if m.n_shared_experts:
-        y = y + mlp_apply(p.shared, x)
+        y = y + mlp_apply(p.shared, x, train=train)
     if capture:
         counts = F.one_hot(idx.reshape(-1, m.top_k).to(torch.long),
                            m.n_experts).to(F32).sum(dim=(0, 1))

@@ -3,14 +3,23 @@ forward with calibration capture, and the serving path (prefill, decode and
 speculative verify).
 
 The reference scans stacked ``[L, ...]`` parameters; here a stack is a Python
-sequence of :class:`Block` modules and the scan is a loop.
+sequence of :class:`Block` modules and the scan is a loop. Under training
+(``train=True``) each block is rematerialised as ``cfg.remat`` asks, the
+reference's ``_maybe_remat``: ``"full"`` keeps only the block's input
+(``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of its
+matrix products (selective checkpointing). The reference also puts a
+``bf16_cotangent`` barrier after each block, an identity in both passes on a
+bf16 model (its cotangents are bf16 already) that fails on an fp32 one; the
+port has no barrier, so an fp32 model trains with fp32 cotangents.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils import checkpoint as CP
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -40,32 +49,67 @@ def _ffn(cfg: ModelConfig, p: Block, hn: torch.Tensor) -> torch.Tensor:
 
 
 def block_apply(cfg: ModelConfig, p: Block, x: torch.Tensor, *, inv_freq,
-                positions=None, causal: bool = True, capture: bool = False):
+                positions=None, causal: bool = True, capture: bool = False,
+                train: bool = False):
     """Full-sequence block. Returns (y, aux_loss, capture) with capture
     ``(expert_inputs [B, S, d], usage_counts [N])`` of the MoE layer when
-    ``capture`` (None otherwise and for dense MLP blocks)."""
+    ``capture`` (None otherwise and for dense MLP blocks). ``train``: the
+    training arithmetic (``layers``' module docstring)."""
     a = L.attn_apply(cfg, p.attn, L.rmsnorm(p.ln1, x, cfg.norm_eps),
-                     inv_freq=inv_freq, positions=positions, causal=causal)
+                     inv_freq=inv_freq, positions=positions, causal=causal,
+                     train=train)
     h = x + a
     hn = L.rmsnorm(p.ln2, h, cfg.norm_eps)
     if cfg.moe is not None:
-        out = M.moe_apply(cfg, p.moe, hn, capture=capture)
+        out = M.moe_apply(cfg, p.moe, hn, capture=capture, train=train)
         cap = (out.expert_inputs, out.usage_counts) if capture else None
         return h + out.y, out.aux_loss, cap
-    return (h + L.mlp_apply(p.mlp, hn),
+    return (h + L.mlp_apply(p.mlp, hn, train=train),
             torch.zeros((), dtype=torch.float32, device=x.device), None)
 
 
+#: the products whose outputs ``remat="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CP.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CP.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat`` (``"none"``, ``"full"``,
+    ``"dots"``), the reference's ``_maybe_remat``."""
+    if cfg.remat == "full":
+        return CP.checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return CP.checkpoint(fn, *args, use_reentrant=False,
+                             context_fn=functools.partial(
+                                 CP.create_selective_checkpoint_contexts,
+                                 _dots_policy))
+    if cfg.remat != "none":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return fn(*args)
+
+
 def stack_apply(cfg: ModelConfig, blocks: Sequence[Block], x: torch.Tensor, *,
-                inv_freq, capture: bool = False):
+                inv_freq, capture: bool = False, train: bool = False):
     """The stack's full-sequence forward, a loop over its blocks. Returns
     (y, total aux loss, captures): captures ``(expert_inputs [L, B, S, d],
-    usage_counts [L, N])`` when ``capture`` on an MoE stack, else None."""
+    usage_counts [L, N])`` when ``capture`` on an MoE stack, else None.
+    ``train``: the training arithmetic, each block under ``cfg.remat``."""
     h = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caps = []
     for p in blocks:
-        h, a, cap = block_apply(cfg, p, h, inv_freq=inv_freq, capture=capture)
+        if train:
+            h, a, cap = _remat(cfg, functools.partial(
+                block_apply, cfg, p, inv_freq=inv_freq, capture=capture,
+                train=True), h)
+        else:
+            h, a, cap = block_apply(cfg, p, h, inv_freq=inv_freq,
+                                    capture=capture)
         aux = aux + a
         caps.append(cap)
     if capture and cfg.moe is not None:
