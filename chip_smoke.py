@@ -37,9 +37,11 @@ one JSON line:
             both timed at qwen3-moe's and granite-8b's heads; flash_attention
             likewise (plus the rounding of p to the input type), with its
             last visible key dropped, over causal / non-causal, Sq < Sk, odd
-            lengths, GQA and query offsets, and its rows are bitwise the same
-            alone, in a batch, in a longer prefill and behind an offset; timed
-            at the admission and the capture shape beside one library call
+            lengths, GQA, query offsets and hd 80 and 96, and its rows are
+            bitwise the same alone, in a batch, in a longer prefill and
+            behind an offset (hd 64 and 80); timed
+            at the admission and the capture shape and zamba2's prefill
+            (hd 80) beside one library call
             (CUDA events around back-to-back calls, and the device time of
             calls replayed from a CUDA graph);
             swiglu_mlp at widths past granite's f (yi-34b, qwen1.5-110b) and
@@ -54,7 +56,7 @@ one JSON line:
             held to the plain version and timed; in fp32 swiglu_mlp ==
             grouped_swiglu with one group, bitwise); shapes the tensor-core
             kernels do not take (d or f not a multiple of 8, hd not a
-            multiple of 16, hd above 256) are refused before launch.
+            multiple of 8, hd above 256) are refused before launch.
             gather_swiglu and grouped_swiglu by dtype and width: bf16 at
             widths that are multiples of 8 to their tensor-core kernels
             (held to the plain version at bf16 and at fp32, a row bitwise the
@@ -148,6 +150,22 @@ one JSON line:
             pool, greedy, and the dense cache at temperature 0.7 (with
             --profile, one decode block of the dense cache and one of the
             paged int8 pool under torch.profiler)
+  families  the fixed-batch server (launch.serve.FixedBatchServer, the
+            non-slot model API, eager) over every family: each ARCH_IDS
+            config reduced in fp32 on the card against the same server on
+            the CPU, token for token, with the reference's decode == forward
+            contract on the card (its shape and tolerance); then
+            mamba2-370m, zamba2-2.7b (flash at hd 80 on the tensor cores),
+            whisper-base (1500 random frames, 32-token prompts) and
+            phi-3-vision-4.2b (64 patches) and granite-8b at their
+            published widths and full depth, bf16, random weights, batch 4,
+            128-token prompts, 32 new tokens: every kernel launch counted
+            against the path's and on the tensor-core routes, the same
+            tokens twice, ms per prefill and per step, tokens/s, peak
+            memory, decode == forward (a reading); granite-8b's server ==
+            its engine token for token. In the serve phase, a reading:
+            qwen3-moe at --layers through the server against the engine
+            (C5)
   train     the trainer (launch.train.train, the reference's training
             arithmetic: no hand-written kernel, each block under the
             config's remat): reduced qwen3-moe and granite-8b in fp32, 5
@@ -389,11 +407,16 @@ SWIGLU_CASES = {
     "T-one": (1, 16, 32), "T-13": (13, 24, 40), "odd-widths": (7, 23, 31),
     "d-chunks": (9, 2500, 40), "f-chunks": (5, 16, 2100), "T-zero": (0, 16, 32),
     "ragged-8-odd": (11, 8 * 45, 8 * 131),
+    "phi3v-3072x8192": (4, 3072, 8192), "zamba2-2560x10240": (4, 2560, 10240),
+    "whisper-512x2048": (4, 512, 2048),
 }
 #: (B, nq, nkv, hd, bs, mb) as in tests/test_torch_paged_attention.py
 PAGED_CASES = {"mha": (2, 4, 4, 16, 4, 3), "gqa4": (3, 8, 2, 16, 8, 2),
                "hd32": (1, 4, 4, 32, 4, 4), "serve-like": (4, 8, 1, 128, 16, 4),
-               "long-table": (2, 8, 2, 64, 16, 40)}
+               "long-table": (2, 8, 2, 64, 16, 40),
+               "mha-hd80": (4, 32, 32, 80, 16, 10),
+               "mha-hd96": (4, 32, 32, 96, 16, 14),
+               "mha-whisper": (4, 8, 8, 64, 16, 5)}
 
 
 def up_to(n: int, m: int) -> int:
@@ -593,9 +616,12 @@ def paged_split_checks(gen, dev, dtype, note) -> int:
 #: (B, H, nkv, Sq, Sk, hd, causal, qoff) as the reference's flash case list
 #: (tests/test_kernels.py) at reduced widths, plus GQA, odd lengths, Sq < Sk
 #: and Sq > Sk causal (rows that see no key), query offsets (the
-#: prefix-sharing admission) and the model's head width. The tensor-core
-#: route takes hd multiples of 16: in bf16 a case with another hd must be
-#: refused before launch and runs at its hd rounded up.
+#: prefix-sharing admission), the model's head width and the families'
+#: shapes: zamba2's and phi-3-vision's heads, whisper-base's encoder (1500
+#: frames, 23 key tiles and a tail, non-causal) and its cross-attention (32
+#: prompt rows at prefill, one row at decode, over the 1500 frames). The
+#: tensor-core route takes hd multiples of 8: in bf16 a case with another
+#: hd must be refused before launch and runs at its hd rounded up.
 FLASH_CASES = {
     "mha-32": (1, 1, 1, 32, 32, 8, True, None),
     "gqa-64": (2, 4, 2, 64, 64, 16, True, None),
@@ -606,6 +632,13 @@ FLASH_CASES = {
     "no-key-rows": (1, 2, 1, 70, 40, 16, True, None),
     "query-offsets": (2, 4, 2, 40, 160, 32, True, (0, 77)),
     "hd128-odd": (1, 8, 1, 130, 130, 128, True, None),
+    "hd80-zamba2": (2, 32, 32, 128, 128, 80, True, None),
+    "hd96-phi3v": (2, 8, 8, 192, 192, 96, True, None),
+    "hd24-zero-tail": (1, 4, 2, 50, 50, 24, True, None),
+    "whisper-encoder": (4, 8, 8, 1500, 1500, 64, False, None),
+    "whisper-cross-prefill": (4, 8, 8, 32, 1500, 64, False, None),
+    "whisper-cross-decode": (4, 8, 8, 1, 1500, 64, False, None),
+    "hd12-not-8": (1, 2, 1, 33, 33, 12, True, None),
 }
 
 
@@ -658,29 +691,38 @@ def flash_plain32(q, k, v, causal, qoff=None, drop: int = 0):
                       for b, o in enumerate(qoff.tolist())])
 
 
+#: keys per staged tile in both of the kernel's routes (csrc ``kBK``)
+FLASH_KEY_TILE = 64
+
+
 def check_flash(name, got, q, k, v, causal, dtype, qoff=None):
     """The kernel's output against the fp32 plain version, and the
-    tolerance's power to see a dropped key. Returns the max abs error."""
+    tolerance's power to see dropped keys: the last one, or over 1024 keys
+    or more, where one key weighs about 1/Sk and sits under bf16's
+    tolerance, the last tile's ragged tail (28 rows at 1500 keys; a whole
+    tile if Sk is a multiple of it). Returns the max abs error."""
     want = flash_plain32(q, k, v, causal, qoff)
     vmax = float(v.float().abs().max())
     tol = flash_tol_for(dtype, want, vmax)
     err, _ = compare(name, got, want, dtype, tol)
-    off = flash_plain32(q, k, v, causal, qoff, drop=1)
+    Sk = k.shape[2]
+    drop = 1 if Sk < 1024 else (Sk % FLASH_KEY_TILE or FLASH_KEY_TILE)
+    off = flash_plain32(q, k, v, causal, qoff, drop=drop)
     torch.cuda.synchronize()
     check(not bool(torch.allclose(off.float(), want.float(), rtol=tol[0],
                                   atol=tol[1])),
-          f"{name}: the tolerance cannot tell a dropped last key")
+          f"{name}: the tolerance cannot tell {drop} dropped last key(s)")
     return err, tol[2]
 
 
-def flash_invariance(gen, dev, dtype) -> dict:
+def flash_invariance(gen, dev, dtype, hd: int = 64) -> dict:
     """A query row's result depends only on its position and the keys it
     sees: rows of one prefill are bitwise the same alone in the batch, in a
     shorter prefill of the same prompt, and computed behind a query offset
     over a longer key buffer whose rows past the last visible key hold NaN
     (the prefix-sharing admission)."""
     from repro_torch.kernels import flash_attention as FA
-    B, H, nkv, S, hd, cut = 3, 4, 2, 150, 64, 70
+    B, H, nkv, S, cut = 3, 4, 2, 150, 70
     q, k, v = flash_inputs(gen, B, H, nkv, S, S, hd, dtype, dev)
     full = FA.attend(q, k, v, True)
     alone = FA.attend(q[1:2], k[1:2], v[1:2], True)
@@ -899,12 +941,12 @@ def case_list(dev):
                       f"flash_attention[hd 272,{key}]")
         n += 1
         for name, (B, H, nkv, Sq, Sk, hd, causal, off) in FLASH_CASES.items():
-            if dtype == torch.bfloat16 and hd % 16:
+            if dtype == torch.bfloat16 and hd % 8:
                 q, k, v = flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev)
                 check_refused(lambda: FA.attend(q, k, v, causal),
                               f"flash_attention[{name},{key}]")
                 n += 1
-                hd = up_to(hd, 16)
+                hd = up_to(hd, 8)
             q, k, v = flash_inputs(gen, B, H, nkv, Sq, Sk, hd, dtype, dev)
             qoff = (None if off is None else
                     torch.tensor(off, dtype=torch.int32, device=dev))
@@ -919,7 +961,8 @@ def case_list(dev):
                 check(bool(torch.equal(via_ops, got)),
                       f"ops.flash_attention[{name},{key}] != attend")
         invariance[key] = flash_invariance(gen, dev, dtype)
-        n += 1
+        invariance[key + ", hd 80"] = flash_invariance(gen, dev, dtype, hd=80)
+        n += 2
     return n, worst, invariance
 
 
@@ -3178,6 +3221,378 @@ def rehearse(args, full_cfg, dense_cfg, device):
 
 
 # ---------------------------------------------------------------------------
+# families: the fixed-batch server over every family
+# ---------------------------------------------------------------------------
+
+#: the families served at their published widths and full depth in the
+#: families phase (granite-8b, the dense family, joins them there)
+FAMILIES = ("mamba2-370m", "zamba2-2.7b", "whisper-base",
+            "phi-3-vision-4.2b")
+#: batch, prompt tokens and new tokens of the families phase; whisper's
+#: prompt is FAMILY_AUDIO_PROMPT tokens over its n_audio_ctx frames
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW = 4, 128, 32
+FAMILY_AUDIO_PROMPT = 32
+#: the reduced rehearsal: batch, prompt, new tokens; and the reference
+#: decode-parity test's shape and tolerance (tests/test_decode_parity.py)
+REHEARSE_FAMILY = (2, 8, 6)
+PARITY_B, PARITY_S, PARITY_TOL = 2, 16, dict(atol=0.08, rtol=0.05)
+
+
+def family_cfg(arch: str, reduced: bool = False, layers=None):
+    """The config of ``arch`` as the families phase serves it: an MoE
+    config with the gather dispatch (the serving one), fp32 when reduced."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = cfg.reduced().replace(dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch="gather"))
+    return cfg
+
+
+def family_inputs(cfg, device, seed: int, batch: int, prompt: int):
+    """Prompts ``[batch, prompt]`` int32 (numpy) and the family's extra
+    inputs on ``device`` in the model type: zero-mean random frames (audio,
+    standard normal) or patch embeddings at the token embeddings' scale
+    (vlm, 0.02), drawn from ``seed`` on the host."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=gen).to(torch.int32).numpy()
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = (torch.randn(
+            (batch, cfg.vlm_num_patches, cfg.d_model), generator=gen)
+            * 0.02).to(device, cfg.param_dtype)
+    if cfg.family == "audio":
+        extra["frames"] = torch.randn(
+            (batch, cfg.n_audio_ctx, cfg.d_model), generator=gen).to(
+                device, cfg.param_dtype)
+    return prompts, extra
+
+
+def family_batch(prompts, extra, device) -> dict:
+    batch = {"tokens": torch.from_numpy(prompts).to(device)}
+    batch.update({k: v.to(device) for k, v in extra.items()})
+    return batch
+
+
+def family_kernel_launches(cfg, new: int) -> dict:
+    """Every kernel's launches in one ``FixedBatchServer.generate`` of
+    ``new`` tokens (``new`` decode steps: the reference steps once more
+    after the last token): the flash kernel once per self-attention layer in
+    the prefill (the whole batch in one launch), and in whisper once per
+    encoder layer and once per cross-attention per prefill and per step;
+    the paged kernel once per self-attention layer and step (the cache's
+    contiguous table); swiglu_mlp once per MLP per prefill and step (an MoE
+    layer's shared experts are one); no MoE kernel but in an MoE config
+    (gather per step, grouped per prefill, one per MoE layer)."""
+    L_ = cfg.n_layers
+    attn = {"ssm": 0, "hybrid": L_ // max(cfg.hybrid_attn_every, 1)}.get(
+        cfg.family, L_)
+    mlp = 0 if cfg.moe is not None else attn
+    flash = attn
+    if cfg.family == "audio":
+        flash += L_ + L_ * (1 + new)        # encoder; cross-attention
+        mlp = 2 * L_
+    want = {name: 0 for name in TABLE}
+    want.update(flash_attention=flash, paged_attention=attn * new,
+                swiglu_mlp=mlp * (1 + new) if cfg.family != "audio"
+                else L_ + L_ * (1 + new))
+    if cfg.moe is not None:
+        want.update(grouped_swiglu=L_, gather_swiglu=L_ * new,
+                    swiglu_mlp=(L_ * (1 + new) if cfg.moe.n_shared_experts
+                                else 0))
+    return want
+
+
+def decode_vs_forward(cfg, model, batch, prompt: int, tokens, step_logits):
+    """The reference's decode == forward contract as a reading: the forward
+    over the prompt and the generated tokens but the last, its logits at the
+    positions the prefill and the steps sampled from, against theirs
+    (``step_logits``: the prefill's then each step's, ``[B, V]`` fp32).
+    Returns the largest gap and the share of positions whose argmax
+    agrees."""
+    from repro_torch.models import model as MD
+    fed = torch.cat([batch["tokens"], tokens[:, :-1].to(
+        batch["tokens"].device, batch["tokens"].dtype)], dim=1)
+    full, _, _ = MD.forward(cfg, model, dict(batch, tokens=fed))
+    want = full[:, prompt - 1:prompt - 1 + len(step_logits)]
+    got = torch.stack(step_logits, dim=1)
+    gap = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return dict(positions=int(want.shape[1]), max_logit_gap=gap,
+                argmax_agreement=agree,
+                max_abs_logit=float(want.abs().max()))
+
+
+def fixed_batch_family(cfg, model, device, seed: int, prompt: int, new: int,
+                       card) -> dict:
+    """One model through ``FixedBatchServer`` at FAMILY_BATCH: a first
+    generate with every kernel's launches counted (zeroed just before, read
+    just after; checked against :func:`family_kernel_launches` and the
+    model dtype's routes) and the peak memory; a second one, which must give
+    the same tokens, on the host clock (tokens/s); then the prefill timed
+    alone and the decode steps replayed on the server's own tokens, each
+    timed (host clock around work that ends in a synchronise), their logits
+    held against the forward (:func:`decode_vs_forward`, a reading)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as MD
+    prompts, extra = family_inputs(cfg, device, seed, FAMILY_BATCH, prompt)
+    sc = SV.ServeConfig(arch=cfg.name, reduced=False, max_new_tokens=new,
+                        seed=seed)
+    srv = SV.FixedBatchServer(sc, cfg=cfg, model=model, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()              # just before the main path
+    tokens = srv.generate(prompts, extra)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()         # just after
+    routes = ops.route_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(tokens.shape == (FAMILY_BATCH, new)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{cfg.name}: tokens out of range or of the wrong shape")
+    want = family_kernel_launches(cfg, new)
+    check(launches == want, f"{cfg.name}: launches {launches} != expected "
+                            f"{want}")
+    check_routes(routes, cfg.dtype)
+    t0 = time.perf_counter()
+    again = srv.generate(prompts, extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(np.array_equal(again, tokens),
+          f"{cfg.name}: a second generate gave other tokens")
+    batch = family_batch(prompts, extra, device)
+    rows = prompt + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = MD.prefill(cfg, model, batch, s_max=rows + new)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t1) * 1e3)
+    toks = torch.from_numpy(tokens).to(device)
+    check(torch.equal(logits.argmax(-1).to(torch.int32), toks[:, 0]),
+          f"{cfg.name}: the prefill's greedy token is not the server's")
+    seen, step_ms = [logits], []
+    for t in range(new - 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = MD.decode_step(cfg, model, cache, toks[:, t])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        seen.append(logits)
+    check(torch.equal(torch.stack([lg.argmax(-1) for lg in seen], 1).to(
+        torch.int32), toks), f"{cfg.name}: the replayed steps' greedy tokens "
+                             f"are not the server's")
+    parity = decode_vs_forward(cfg, model, batch, prompt, toks, seen)
+    del cache
+    n_tok = FAMILY_BATCH * new
+    return dict(
+        model=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model, dtype=cfg.dtype, batch=FAMILY_BATCH,
+        prompt_tokens=prompt, prompt_rows=rows, new_tokens=new,
+        weights_gb=weights_gb(model), peak_gb=peak,
+        prefill_ms=statistics.median(prefill_ms),
+        step_ms=statistics.median(step_ms), step_ms_min=min(step_ms),
+        step_ms_max=max(step_ms), tokens_per_s=n_tok / wall,
+        generate_wall_s=wall, decode_vs_forward=parity,
+        launches={k: v for k, v in launches.items() if v},
+        routes={k: {r: n for r, n in v.items() if n}
+                for k, v in routes.items() if sum(v.values())},
+        card=card, tokens=tokens.tolist())
+
+
+def profile_family_step(cfg, model, device, seed: int, prompt: int) -> dict:
+    """One decode step of the fixed-batch path (after its prefill and a
+    warm-up step) under torch.profiler: host wall time, the device span
+    (CUDA events around the step), the device's busy share (the kernels'
+    own rows) and the kernels that take it, the hand-written ones' share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as MD
+    prompts, extra = family_inputs(cfg, device, seed, FAMILY_BATCH, prompt)
+    batch = family_batch(prompts, extra, device)
+    rows = prompt + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
+    logits, cache = MD.prefill(cfg, model, batch, s_max=rows + 2)
+    tok = logits.argmax(-1).to(torch.int32)
+    logits, cache = MD.decode_step(cfg, model, cache, tok)
+    tok = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        MD.decode_step(cfg, model, cache, tok)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms == 0.0:
+        return dict(wall_ms=wall_ms, device_span_ms=start.elapsed_time(end),
+                    device="not measured (the profiler saw no kernel)")
+    ours = [e for e in kernels if any(
+        t in e.key for t in ("flash", "paged", "swiglu"))]
+    return dict(wall_ms=wall_ms, device_span_ms=start.elapsed_time(end),
+                device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                device_kernels=sum(e.count for e in kernels if dev_us(e) > 0),
+                hand_written_ms=sum(dev_us(e) for e in ours) / 1e3,
+                top=[dict(name=e.key[:60], count=e.count, ms=dev_us(e) / 1e3)
+                     for e in kernels[:6]])
+
+
+def rehearse_families(args, device) -> dict:
+    """Every ARCH_IDS config reduced, fp32: ``FixedBatchServer`` greedy on
+    the card against the same server on the CPU, token for token (the same
+    weights: the CPU model's state copied to the card), its launches
+    checked; and the reference's decode == forward contract on the card at
+    its shape and tolerance (PARITY_TOL)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as MD
+    B, P, N = REHEARSE_FAMILY
+    out = {}
+    for arch in configs.ARCH_IDS:
+        cfg = family_cfg(arch, reduced=True)
+        cpu_model = MD.init(cfg, "cpu", seed=args.seed)
+        gpu_model = MD.init(cfg, device, seed=args.seed)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        prompts, extra = family_inputs(cfg, "cpu", args.seed, B, P)
+        sc = SV.ServeConfig(arch=cfg.name, max_new_tokens=N, seed=args.seed)
+        on_cpu = SV.FixedBatchServer(sc, cfg=cfg, model=cpu_model,
+                                     device="cpu").generate(prompts, extra)
+        ops.reset_launch_counts()
+        on_gpu = SV.FixedBatchServer(sc, cfg=cfg, model=gpu_model,
+                                     device=device).generate(prompts, extra)
+        launches = ops.launch_counts()
+        check(launches == family_kernel_launches(cfg, N),
+              f"reduced {cfg.name}: launches {launches}")
+        check_routes(ops.route_launch_counts(), cfg.dtype)
+        check(np.array_equal(on_gpu, on_cpu),
+              f"reduced fp32 {cfg.name}: FixedBatchServer tokens on the card "
+              f"differ from the CPU's")
+        # the reference's decode == forward contract, on the card
+        toks, ex = family_inputs(cfg, device, args.seed + 1, PARITY_B,
+                                 PARITY_S)
+        batch = family_batch(toks, ex, device)
+        full, _, _ = MD.forward(cfg, gpu_model, batch)
+        rows = PARITY_S - 2 + (cfg.vlm_num_patches if cfg.family == "vlm"
+                               else 0)
+        plog, cache = MD.prefill(cfg, gpu_model,
+                                 dict(batch, tokens=batch["tokens"][:, :-2]),
+                                 s_max=rows + 2)
+        pairs = [(plog, full[:, PARITY_S - 3])]
+        for t in (PARITY_S - 2, PARITY_S - 1):
+            dlog, cache = MD.decode_step(cfg, gpu_model, cache,
+                                         batch["tokens"][:, t])
+            pairs.append((dlog, full[:, t]))
+        gap = max(float((a - b).abs().max()) for a, b in pairs)
+        check(all(bool(torch.allclose(a, b, **PARITY_TOL)) for a, b in pairs),
+              f"reduced {cfg.name} on the card: decode != forward (largest "
+              f"gap {gap})")
+        out[cfg.name] = dict(family=cfg.family, token_equal_card_vs_cpu=True,
+                             decode_vs_forward_max_gap=gap)
+        del cpu_model, gpu_model
+    free()
+    return out
+
+
+def engine_vs_server(cfg, model, device, res, seed: int) -> dict:
+    """The served model's greedy tokens through the continuous-batching
+    engine (FAMILY_BATCH slots, the prompts all admitted at once, each row
+    replayed from its pad shape's graph, decode blocks on graphs) against
+    the fixed-batch server's ``res``: the share of tokens equal."""
+    prompts, _ = family_inputs(cfg, device, seed, FAMILY_BATCH,
+                               res["prompt_tokens"])
+    trace = [dict(prompt=p, max_new_tokens=res["new_tokens"],
+                  arrival_time=0.0) for p in prompts]
+    eng = serve(cfg, model, trace, device, arch=cfg.name,
+                n_slots=FAMILY_BATCH,
+                s_max=res["prompt_tokens"] + res["new_tokens"],
+                prefill_buckets=(res["prompt_tokens"],))
+    share = top1(eng["tokens"], res["tokens"])
+    return dict(token_equal=eng["tokens"] == res["tokens"],
+                share_of_tokens_equal=share,
+                engine_tokens_per_s=sum(map(len, eng["tokens"]))
+                / eng["wall_s"])
+
+
+def moe_server_reading(args, cfg, model, device, card, totals) -> dict:
+    """The serve phase's model through the fixed-batch server (the gather
+    dispatch, FAMILY_BATCH prompts of FAMILY_PROMPT tokens) and through the
+    engine: a reading, not a gate, since the router's top-k sees the row
+    count (C5). Its launches go into ``totals``."""
+    gcfg = family_cfg(ARCH, layers=cfg.n_layers)
+    res = fixed_batch_family(gcfg, model, device, args.seed, FAMILY_PROMPT,
+                             FAMILY_NEW, card)
+    for name, n in res["launches"].items():
+        totals[0][name] += n
+    add_routes(totals[1], res["routes"])
+    res["engine"] = engine_vs_server(gcfg, model, device, res, args.seed)
+    del res["tokens"]
+    return res
+
+
+def families_phase(args, device, card, totals) -> dict:
+    """The rehearsal, then each family at its published widths and full
+    depth in bf16 (random weights from the seed), granite-8b's server
+    against the engine, token for token. Each model's launches go into
+    ``totals`` (launches, routes)."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    emit("families", form="rehearse, reduced fp32, card vs CPU", card=card,
+         models=rehearse_families(args, device),
+         seconds=time.perf_counter() - t0)
+    lines = []
+    for arch in FAMILIES + (DENSE,):
+        cfg = family_cfg(arch)
+        check(cfg.n_layers == configs.get(arch).n_layers
+              and cfg.d_model == configs.get(arch).d_model,
+              f"{arch}: not at its published widths and depth")
+        t1 = time.perf_counter()
+        model, build_s = build_model(cfg, device, args.seed)
+        prompt = FAMILY_AUDIO_PROMPT if cfg.family == "audio" \
+            else FAMILY_PROMPT
+        res = fixed_batch_family(cfg, model, device, args.seed, prompt,
+                                 FAMILY_NEW, card)
+        for name, n in res["launches"].items():
+            totals[0][name] += n
+        add_routes(totals[1], res["routes"])
+        if arch == DENSE:
+            res["engine"] = engine_vs_server(cfg, model, device, res,
+                                             args.seed)
+            check(res["engine"]["token_equal"],
+                  f"{arch}: the engine's greedy tokens differ from the "
+                  f"fixed-batch server's ({res['engine']['share_of_tokens_equal']}"
+                  f" equal)")
+        if args.profile:
+            res["profile_step"] = profile_family_step(cfg, model, device,
+                                                      args.seed, prompt)
+        res.update(init_s=build_s, seconds=time.perf_counter() - t1)
+        del res["tokens"]
+        emit("families", **res)
+        lines.append(res)
+        del model
+        free()
+    return {r["model"]: r for r in lines}
+
+
+# ---------------------------------------------------------------------------
 # speculative decoding: the draft proposes, the full model verifies
 # ---------------------------------------------------------------------------
 
@@ -4504,7 +4919,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode block of the uncompressed "
                          "MoE model (bf16 and int8 expert tables) and of the "
-                         "dense model (dense cache and paged int8 pool) with "
+                         "dense model (dense cache and paged int8 pool), and "
+                         "one fixed-batch decode step of each family, with "
                          "torch.profiler and print where its time goes")
     ap.add_argument("--witness-layers", type=int, default=0,
                     help="also read the paged int8 pool's top-1 against the "
@@ -4569,12 +4985,21 @@ def main(argv=None) -> int:
          ("capture", CALIB_BATCH, CALIB_SEQ, torch.bfloat16),
          ("admission", 1, prompt, torch.float32)])
     checks.extend(flash)
+    # zamba2's prefill at hd 80 (its tiles end on zero-filled columns past
+    # hd in no k16 step: 80 is five of them; the bf16 route takes any
+    # multiple of 8)
+    flash_hd80 = flash_main_shapes(
+        device, configs.get("zamba2-2.7b"),
+        [("zamba2 prefill, hd 80", FAMILY_BATCH, FAMILY_PROMPT,
+          torch.bfloat16)])
+    checks.extend(flash_hd80)
     timed_keys = ("shape", "max_err", "ms", "device_ms", "plain_ms", "bound_ms",
                   "bound_by", "library_ms", "library_device_ms")
     # the main entries are bf16 (the tensor-core routes); the fp32 route's
     # numbers ride along, and swiglu's admission shape beside its decode one
     entries["flash_attention"] = dict(flash[0], cuda_core_route={
-        k: flash[2][k] for k in timed_keys})
+        k: flash[2][k] for k in timed_keys}, hd80={
+        k: flash_hd80[0][k] for k in timed_keys})
     swiglu, swiglu_timed = swiglu_main_shapes(device, prompt)
     checks.extend(swiglu)
     swiglu_timed["decode"]["round_gu_exact_sums"] = round_gu_exact(device)
@@ -4658,6 +5083,14 @@ def main(argv=None) -> int:
                free_running_agreement_with_dense=top1(res["tokens"],
                                                       dense["tokens"]),
                teacher_forced_top1_vs_dense=top1(pred[form], dense["tokens"]))
+    # a reading for the families line: the fixed-batch server on this model
+    # (gather dispatch) against the engine, bounded by C5
+    t1 = time.perf_counter()
+    emit("families", form="reading: MoE fixed-batch server against the "
+                          "engine (C5)",
+         **moe_server_reading(args, cfg, model, device, card,
+                              (total_launches, total_routes)),
+         seconds=time.perf_counter() - t1)
     # speculative decoding at this depth: the model as its own draft and a
     # random 2-layer draft, verify == decode, the row-count reading
     t1 = time.perf_counter()
@@ -4784,6 +5217,13 @@ def main(argv=None) -> int:
     free()
     t_dense = time.perf_counter() - t0
 
+    # ---- families: the fixed-batch server over every family (reduced fp32
+    # card vs CPU, then mamba2, zamba2, whisper, phi-3-vision and granite at
+    # their published widths and full depth, bf16)
+    t0 = time.perf_counter()
+    families_phase(args, device, card, (total_launches, total_routes))
+    t_families = time.perf_counter() - t0
+
     # ---- train: the trainer on the card (reduced fp32 card vs CPU, the
     # resume drill), then qwen3-moe at its published widths, 4 layers
     t0 = time.perf_counter()
@@ -4881,14 +5321,14 @@ def main(argv=None) -> int:
                                    "previous_device_ms_with_combine",
                                    "admission", "round_gu",
                                    "round_gu_exact_sums", "merged_shape",
-                                   "cuda_core_route")
+                                   "cuda_core_route", "hd80")
                if k in rec}))
         check(total_launches[name] > 0, f"{name} never launched on the main path")
     check_routes(total_routes, "bfloat16")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"seconds": dict(
         rehearse=t_rehearse, kernels=t_kernels, serve=t_serve, dense=t_dense,
-        train=t_train, compress=t_compress, variants=t_variants,
+        families=t_families, train=t_train, compress=t_compress, variants=t_variants,
         resilience=t_resilience,
         total=time.perf_counter() - t_start)}), flush=True)
     print(env.gpu_line() or torch.cuda.get_device_name(0), flush=True)

@@ -11,7 +11,12 @@ as such a tree; checkpoints store it). The reference stacks a
 layer stack's leaves along a leading ``[L, ...]`` axis; the port keeps one
 module per layer, so every stacked leaf is sliced along axis 0. Leaf names
 inside a layer are the reference's (``attn.wq wk wv wo``, ``moe.router wg wu
-wd remap live``, ``ln1 ln2 final_ln .scale``, ``embed.tok embed.head``).
+wd remap live``, ``ln1 ln2 final_ln .scale``, ``embed.tok embed.head``), in
+every family: ``ssm_ln`` / ``ssm`` (``in_proj conv_w conv_b dt_bias A_log D
+norm_scale out_proj``), ``hybrid.{mamba_ln, mamba, shared_ln1, shared_attn,
+shared_ln2, shared_mlp}``, ``encdec.{enc, enc_ln, dec}``; each leaf keeps
+its own dtype (a Mamba2 block's ``dt_bias``, ``A_log`` and ``D`` are fp32
+in a bf16 model).
 Every shape is checked and a missing or an extra leaf raises.
 
 Training state crosses both ways too: :func:`tree_to_torch` /
@@ -37,7 +42,7 @@ import torch.nn as nn
 from repro_torch.ckpt import treedef as TD
 from repro_torch.core import quant as Q
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, nest
+from repro_torch.models.model import Model, leaf_groups, nest, split_name
 
 
 def tree_to_torch(tree, device="cpu"):
@@ -85,23 +90,20 @@ def stack_tree(blocks, skip=()) -> dict:
 
 
 def unstacked_tree(model: Model) -> dict:
-    """The model's leaves outside its layer stacks (embedding, final norm)
-    under the reference's names, the model's own tensors. With
-    :func:`stack_tree` for each stack it makes the tree
-    :func:`from_reference_params` takes."""
+    """The model's leaves outside its layer stacks (embedding, final norm,
+    the hybrid family's shared block, the encoder's final norm) under the
+    reference's names, the model's own tensors. With :func:`stack_tree` for
+    each stack it makes the tree :func:`from_reference_params` takes."""
     return nest({name: t for name, t in _targets(model).items()
-                  if name.split(".")[0] not in ("stack", "stack_c")})
+                 if split_name(name)[1] is None})
 
 
 def reference_tree(model: Model) -> dict:
     """The whole model as the reference's parameter tree: the inverse of
     :func:`from_reference_params` (each stack's leaves stacked, a copy on
-    the model's device)."""
-    tree = unstacked_tree(model)
-    for key in ("stack", "stack_c"):
-        if hasattr(model, key):
-            tree[key] = stack_tree(getattr(model, key))
-    return tree
+    the model's device; the leaves outside the stacks the model's own)."""
+    return nest({name: torch.stack(ts) if stacked else ts[0]
+                 for name, (ts, stacked) in leaf_groups(model).items()})
 
 
 def _targets(model: Model) -> Dict[str, torch.Tensor]:
@@ -139,12 +141,11 @@ def from_reference_params(tree: dict, cfg: ModelConfig, device,
     # reference name -> list of (port name) per layer slice, or one name
     expected: Dict[str, list] = {}
     for name in targets:
-        parts = name.split(".")
-        if parts[0] in ("stack", "stack_c"):
-            ref_name = ".".join([parts[0]] + parts[2:])
-            expected.setdefault(ref_name, []).append((int(parts[1]), name))
-        else:
+        ref_name, layer = split_name(name)
+        if layer is None:
             expected[name] = [(None, name)]
+        else:
+            expected.setdefault(ref_name, []).append((layer, name))
     missing = sorted(set(expected) - set(flat))
     extra = sorted(set(flat) - set(expected))
     if missing or extra:

@@ -14,7 +14,12 @@ takes, written from the installed ``jax._src.prng`` and ``jax._src.random``
 * :func:`uniform`: the top 23 bits as the mantissa of a float in ``[1, 2)``,
   minus 1, scaled into ``[minval, maxval)`` and clamped below at ``minval``;
 * :func:`gumbel`: ``-log(-log(uniform(minval=tiny, maxval=1)))`` (jax's mode
-  "low").
+  "low");
+* :func:`split`: ``jax.random.split``, key ``i`` both words of
+  ``threefry2x32(key, (i >> 32, i mod 2^32))``;
+* :func:`categorical`: ``jax.random.categorical`` with replacement along the
+  last axis, ``argmax(gumbel(key, logits.shape) + logits)`` (the Gumbel
+  words indexed in row-major order over the logits' shape).
 
 A key is an int64 tensor ``[..., 2]`` holding two 32-bit words: torch's
 ``uint32`` supports few operations, on CUDA especially, so every 32-bit word
@@ -106,3 +111,20 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,), float32)`` in mode "low": keys
     ``[..., 2]`` -> fp32 ``[..., n]``."""
     return -torch.log(-torch.log(uniform(key, n, minval=TINY, maxval=1.0)))
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: keys ``[..., 2]`` -> ``[..., num,
+    2]``."""
+    count = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key[..., 0, None], key[..., 1, None], count >> 32,
+                          count & MASK)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` (axis -1, with replacement,
+    mode "low"): one key ``[2]``, fp32 logits ``[..., V]`` -> int32
+    ``[...]``."""
+    noise = gumbel(key, logits.numel()).reshape(logits.shape)
+    return torch.argmax(noise + logits, dim=-1).to(torch.int32)

@@ -30,9 +30,13 @@
 // S = Q K^T and O += P V run on mma.m16n8k16 (bf16 in, fp32 accumulate; V
 // through ldmatrix.trans); the S accumulators become P's A fragments in
 // registers. The running max and sum of a row stay in the registers of the
-// quad that holds it, reduced by shuffles. hd a multiple of 16 up to 256, the
-// kernel compiled for 16, 32, 64, 128 and 256 columns (a narrower hd runs the
-// next width with zero-filled columns it never reads back). What bounds it:
+// quad that holds it, reduced by shuffles. hd a multiple of 8 from 8 to 256,
+// the kernel compiled for 16, 32, 64, 128 and 256 columns: a narrower hd runs
+// the next width, its tiles' columns [hd, HD) zero-filled by the copies (a
+// row of hd values is hd / 8 whole 16-byte copies), so the S = Q K^T steps
+// stop at the first k16 step past hd and an hd that is an odd multiple of 8
+// ends on 8 exact zeros; P V's 8-wide n-tiles cover hd as they are and the
+// columns past hd are never stored. What bounds it:
 // at the port's shapes (S up to 512, hd 128) neither bytes nor operations but
 // latency: one wave of short blocks.
 //
@@ -507,9 +511,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 // The bf16 route (tensor cores): the same arguments in bfloat16, hd a
-// multiple of 16 up to 256, every stride a multiple of 8 elements and every
-// base 16-byte aligned. Returns 0, the cudaError_t of a refused launch, or -2
-// for an hd the kernel does not take.
+// multiple of 8 from 8 to 256, every stride a multiple of 8 elements and
+// every base 16-byte aligned. Returns 0, the cudaError_t of a refused launch,
+// or -2 for an hd the kernel does not take.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* out,
                                          const int* qoff,
@@ -518,7 +522,7 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          int n_rep, int causal, float scale,
                                          int dtype, void* stream) {
   if (dtype != 1) return -1;
-  if (hd < 16 || hd > 256 || hd % 16 != 0) return -2;
+  if (hd < 8 || hd > 256 || hd % 8 != 0) return -2;
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   using tc::bf16;
   const flash::Strides st[4] = {{strides[0], strides[1], strides[2]},

@@ -18,9 +18,11 @@ Two routes, by dtype (:func:`route`), each with its own C entry point in
   of one head, a warp 16 of them; ``S = Q K^T`` and ``O += P V`` run on
   ``mma.m16n8k16`` (bf16 in, fp32 accumulate) with K/V tiles of 64 keys
   double-buffered by ``cp.async`` (``csrc/tc_sm90.cuh``); the running max and
-  sum of a row stay in registers. hd a multiple of 16 up to 256; strides
-  multiples of 8 elements and bases 16-byte aligned (one copy moves 8
-  values).
+  sum of a row stay in registers. hd a multiple of 8 from 8 to 256 (the
+  tiles' columns past hd are zero-filled in shared memory, so an hd that is
+  an odd multiple of 8 ends its k16 reduction on exact zeros; zamba2's 80
+  and phi-3-vision's 96 run as they are); strides multiples of 8 elements
+  and bases 16-byte aligned (one copy moves 8 values).
 * fp32 -> ``cuda_core``: on tensor cores fp32 would become TF32, so fp32 keeps
   the CUDA-core kernel: one block per 64 query rows of a head, K/V tiles of
   64 keys staged in shared memory as fp32, each row's state carried across
@@ -81,10 +83,10 @@ def _smem(hd: int) -> int:
 
 def _check_tc(hd: int, tensors) -> None:
     """What the tensor-core kernel needs beyond the shared checks: hd a
-    multiple of 16 up to 256, every stride a multiple of 8 elements and
-    every base 16-byte aligned (its copies move 16 bytes)."""
-    if hd % 16 or not 16 <= hd <= 256:
-        raise ValueError(f"flash_attention: bf16 needs hd a multiple of 16 "
+    multiple of 8 from 8 to 256 (a row is whole 16-byte copies), every
+    stride a multiple of 8 elements and every base 16-byte aligned."""
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"flash_attention: bf16 needs hd a multiple of 8 "
                          f"up to 256, got {hd}")
     for nm, t in tensors:
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
@@ -146,7 +148,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     hd]``; k / v: ``[B, nkv, Sk, hd]`` with ``H`` a multiple of ``nkv`` (head
     h reads kv head ``h // (H // nkv)``); any strides with a contiguous last
     axis (bf16: strides multiples of 8, bases 16-byte aligned, hd a multiple
-    of 16). qoff: optional ``[B]`` integer query offsets of the causal mask
+    of 8). qoff: optional ``[B]`` integer query offsets of the causal mask
     (default ``Sk - Sq``). out: optional ``[B, H, Sq, hd]`` destination in
     ``q.dtype`` (any strides with a contiguous last axis), else a new
     contiguous tensor. Returns it. Everything on one CUDA device; raises

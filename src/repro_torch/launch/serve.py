@@ -1,5 +1,5 @@
-"""Serving command line: a Poisson trace through the continuous-batching
-engine.
+"""Serving: the fixed-batch server (every family) and the command line of the
+continuous-batching engine (a Poisson trace).
 
     python -m repro_torch.launch.serve                      # reduced config, on the GPU
     python -m repro_torch.launch.serve --device cpu         # the plain PyTorch path
@@ -11,19 +11,118 @@ engine.
 ``--full-width`` serves the published widths of ``--arch`` with random
 weights (``--layers`` cuts the depth so the model fits the card; a dense
 config such as granite-8b fits at its full depth and needs no MoE flag).
-The fixed-batch server of the reference needs the non-slot model API and is not
-ported yet.
+The engine serves the dense and moe families. :class:`FixedBatchServer`
+serves every family (``mamba2-370m``, ``zamba2-2.7b``, ``whisper-base``,
+``phi-3-vision-4.2b`` too) from the library::
+
+    srv = FixedBatchServer(ServeConfig(arch="zamba2-2.7b"), device="cpu")
+    tokens = srv.generate(prompts)              # [B, max_new_tokens]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import configs
+from repro_torch.core import threefry as TF
 from repro_torch.core.quant import quantize_model_experts
+from repro_torch.launch import steps as ST
+from repro_torch.models import model as MD
 from repro_torch.serving import Engine, EngineConfig, poisson_trace
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """The reference's settings less ``batch_size`` and ``prompt_len``: the
+    batch and the cache's rows are read from the prompts handed to
+    :meth:`FixedBatchServer.generate`."""
+    arch: str = "qwen3-moe-30b-a3b"
+    reduced: bool = True
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    seed: int = 0
+
+
+class FixedBatchServer:
+    """The reference's fixed-batch loop (its ``Server``): a batch of prompts
+    of one length shares one scalar cache position and finishes before the
+    next batch starts. It serves every family through the non-slot API
+    (``model.prefill`` / ``decode_step``, eager: the reference jits them)
+    and is the baseline the engine's tokens are held to.
+
+    ``device`` is the caller's (default ``"cuda"``), never chosen for it;
+    ``model``: the port's model on that device (default: random weights of
+    ``cfg`` from ``sc.seed``). Sampling at ``sc.temperature > 0`` is the
+    reference's: ``key, sub = split(key)`` then ``categorical(sub, logits /
+    T)`` on JAX's threefry, from ``PRNGKey(sc.seed)``.
+
+    One repair (ROADMAP C12): the cache holds every prompt row plus
+    ``max_new_tokens``, a vlm's patch rows included; the reference sizes it
+    ``prompt_len + max_new_tokens`` and its decode then writes the rows past
+    that over the last one."""
+
+    def __init__(self, sc: ServeConfig, cfg=None, model=None,
+                 device="cuda"):
+        self.sc = sc
+        self.device = torch.device(device)
+        self.cfg = cfg if cfg is not None else (
+            configs.get(sc.arch).reduced() if sc.reduced
+            else configs.get(sc.arch))
+        if model is None:
+            model = MD.init(self.cfg, self.device, seed=sc.seed)
+        elif model.device.type != self.device.type:
+            raise ValueError(f"the model lives on {model.device}, the server "
+                             f"on {self.device}")
+        self.model = model
+        self._step = ST.make_serve_step(self.cfg)
+
+    def _batch(self, prompts, extra_batch) -> dict:
+        batch = {"tokens": torch.as_tensor(prompts).to(self.device,
+                                                       torch.int32)}
+        for key, val in (extra_batch or {}).items():
+            batch[key] = torch.as_tensor(val).to(self.device)
+        if self.cfg.family == "audio" and "frames" not in batch:
+            batch["frames"] = torch.zeros(
+                (batch["tokens"].shape[0], self.cfg.n_audio_ctx,
+                 self.cfg.d_model), dtype=self.cfg.param_dtype,
+                device=self.device)
+        return batch
+
+    def generate(self, prompts, extra_batch: Optional[dict] = None
+                 ) -> np.ndarray:
+        """prompts: ``[B, P]`` integers -> ``[B, max_new_tokens]`` int32;
+        the cache holds ``P`` rows (plus a vlm's patch rows) and
+        ``max_new_tokens``. ``extra_batch``: ``patches`` (vlm) or ``frames``
+        (audio; zeros in the model type when not given), numpy arrays or
+        tensors."""
+        sc, cfg = self.sc, self.cfg
+        batch = self._batch(prompts, extra_batch)
+        rows = batch["tokens"].shape[1]
+        if cfg.family == "vlm" and "patches" in batch:
+            rows += batch["patches"].shape[1]
+        prefill = ST.make_serve_prefill(cfg, s_max=rows + sc.max_new_tokens)
+        logits, cache = prefill(self.model, batch)
+        key = TF.prng_key(sc.seed, self.device)
+        outs = []
+        for _ in range(sc.max_new_tokens):
+            if sc.temperature > 0:
+                key, sub = TF.split(key)
+                tok = TF.categorical(sub, logits / torch.full_like(
+                    logits, sc.temperature))
+            else:
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            outs.append(tok)
+            logits, cache = self._step(self.model, cache, tok)
+        return torch.stack(outs, dim=1).cpu().numpy()
+
+
+# the reference's alias
+Server = FixedBatchServer
 
 
 def main(argv=None):

@@ -1,5 +1,7 @@
-"""Step functions: the train step (:func:`make_train_step`), and the steps of
-the continuous-batching engine with the CUDA graphs that replay them.
+"""Step functions: the train step (:func:`make_train_step`), the fixed-batch
+server's prefill and step (:func:`make_serve_prefill`,
+:func:`make_serve_step`, eager), and the steps of the continuous-batching
+engine with the CUDA graphs that replay them.
 
 Each ``make_*`` closes over the ModelConfig and returns the callable the
 engine invokes: the step's BODY, which runs eagerly under
@@ -157,6 +159,32 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatches: int = 1,
 
     return train_step
 
+
+# ---------------------------------------------------------------------------
+# fixed-batch serving (the non-slot API)
+# ---------------------------------------------------------------------------
+
+def make_serve_prefill(cfg: ModelConfig, s_max: Optional[int] = None
+                       ) -> Callable:
+    """serve_prefill(model, batch) -> (logits [B, V], cache): the model's
+    :func:`model.prefill` at capacity ``s_max``. Runs eagerly (the
+    reference jits it; no CUDA graph on this path)."""
+    def serve_prefill(model, batch):
+        return MD.prefill(cfg, model, batch, s_max=s_max)
+    return serve_prefill
+
+
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    """serve_step(model, cache, token [B]) -> (logits [B, V], cache): one
+    :func:`model.decode_step`, the cache updated in place."""
+    def serve_step(model, cache, token):
+        return MD.decode_step(cfg, model, cache, token)
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching (slotted) serving
+# ---------------------------------------------------------------------------
 
 def admit_pad_shapes(buckets, s_max: int) -> Tuple[int, ...]:
     """The ONLY prompt pad lengths admission may use, ascending: the declared

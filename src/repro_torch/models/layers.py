@@ -1,7 +1,7 @@
 """Core layers of the serving path: RMSNorm, RoPE, GQA attention (prefill,
-per-slot decode and speculative verify over the dense cache or the paged KV
-pool, and the verify-shaped admission over the pool), SwiGLU MLP, embedding
-and LM head.
+cross-attention, decode at one position or per slot and speculative verify
+over the dense cache or the paged KV pool, and the verify-shaped admission
+over the pool), SwiGLU MLP, embedding and LM head.
 
 ``nn.Module``s own the parameters (``requires_grad=False`` until a trainer
 turns it on: ``models.model.trainable``); the arithmetic is in plain
@@ -107,20 +107,21 @@ class Attention(nn.Module):
             self.bv = _param(torch.zeros((nkv * hd,), dtype=dt, device=device))
 
 
-def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+def _proj(cfg: ModelConfig, p: Attention, x: torch.Tensor, which: str,
+          heads: int) -> torch.Tensor:
+    """One of the q / k / v projections (``which``), ``[B, S, heads, hd]``
+    in x's type."""
     B, S, _ = x.shape
-    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = ein("bsd,dh->bsh", x, p.wq)
-    k = ein("bsd,dh->bsh", x, p.wk)
-    v = ein("bsd,dh->bsh", x, p.wv)
+    y = ein("bsd,dh->bsh", x, getattr(p, "w" + which))
     if cfg.qkv_bias:
-        q = q + p.bq.to(q.dtype)
-        k = k + p.bk.to(k.dtype)
-        v = v + p.bv.to(v.dtype)
-    q = q.to(x.dtype).reshape(B, S, nq, hd)
-    k = k.to(x.dtype).reshape(B, S, nkv, hd)
-    v = v.to(x.dtype).reshape(B, S, nkv, hd)
-    return q, k, v
+        y = y + getattr(p, "b" + which).to(y.dtype)
+    return y.to(x.dtype).reshape(B, S, heads, cfg.hd)
+
+
+def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor):
+    return (_proj(cfg, p, x, "q", cfg.n_heads),
+            _proj(cfg, p, x, "k", cfg.n_kv_heads),
+            _proj(cfg, p, x, "v", cfg.n_kv_heads))
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
@@ -182,21 +183,26 @@ def attn_apply(cfg: ModelConfig, p: Attention, x: torch.Tensor, *, inv_freq,
                positions=None, causal: bool = True,
                kv: Optional[torch.Tensor] = None,
                train: bool = False) -> torch.Tensor:
-    """Full-sequence self-attention (forward / capture / loss; ``train``:
-    see :func:`_attend`). Returns ``[B, S, d]``. Cross-attention (``kv``,
-    the whisper decoder) is not ported."""
-    if kv is not None:
-        raise NotImplementedError(
-            "cross-attention (kv=...) belongs to the encoder-decoder family, "
-            "which is not ported yet")
+    """Full-sequence attention (forward / capture / loss / the encoder;
+    ``train``: see :func:`_attend`). Returns ``[B, S, d]``.
+
+    ``kv`` ``[B, Sk, d]``: cross-attention (the whisper decoder), q from
+    ``x``, k and v projected from ``kv``, no RoPE and no mask: on the card
+    the flash kernel, non-causal at ``Sq != Sk``."""
     B, S, _ = x.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
-    q, k, v = _qkv(cfg, p, x)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    if inv_freq is not None:
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
+    if kv is not None:
+        q = _proj(cfg, p, x, "q", cfg.n_heads)
+        k = _proj(cfg, p, kv, "k", cfg.n_kv_heads)
+        v = _proj(cfg, p, kv, "v", cfg.n_kv_heads)
+        causal = False
+    else:
+        q, k, v = _qkv(cfg, p, x)
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        if inv_freq is not None:
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
     out = _attend(q, k, v, n_rep, causal=causal, train=train)
     out = out.reshape(B, S, cfg.n_heads * cfg.hd)
     return ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
@@ -311,6 +317,22 @@ def attn_decode_slots(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
     out = ein("bsh,hd->bsd", out, p.wo).to(x.dtype)
     return out, cache_k, cache_v
+
+
+def attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos: torch.Tensor, *, inv_freq,
+                view: Optional[DecodeView] = None):
+    """Single-token decode with ONE position for the whole batch (the
+    non-slot cache): :func:`attn_decode_slots` with the 0-d ``pos``
+    expanded to ``[B]``, so it runs the paged kernel over the cache's
+    contiguous table, one computation with the engine's dense decode.
+    cache_k/v ``[B, rows, nkv, hd]`` updated IN PLACE; ``view``: the step's
+    :func:`decode_view` of the expanded ``pos``. Returns (out ``[B, 1,
+    d]``, cache_k, cache_v)."""
+    return attn_decode_slots(cfg, p, x, cache_k, cache_v,
+                             pos.expand(x.shape[0]), inv_freq=inv_freq,
+                             view=view)
 
 
 def _verify_qkv(cfg: ModelConfig, p: Attention, xs, pos: torch.Tensor,

@@ -1,5 +1,6 @@
-"""The model: the full-sequence forward and loss, and the slot API for
-continuous batching (dense / moe families).
+"""The model over every family: the full-sequence forward and loss, the
+non-slot serving API (one position for the whole batch, the fixed-batch
+server's) and the slot API for continuous batching (dense / moe families).
 
   Model(cfg, device, generator)                        -> module with random weights
   forward(cfg, model, batch, capture, train)           -> (logits, aux, captures)
@@ -7,6 +8,9 @@ continuous batching (dense / moe families).
   trainable(model, on)                                 -> model (requires_grad)
   leaf_groups(model)                                   -> {reference leaf: tensors}
   shape_tree(model)                                    -> reference-layout stand-ins
+  init_cache(cfg, batch_size, s_max, device)           -> cache dict
+  prefill(cfg, model, batch, s_max)                    -> (logits, cache)
+  decode_step(cfg, model, cache, token)                -> (logits, cache)
   init_slot_cache(cfg, n_slots, s_max, device)         -> cache dict
   slot_consts(cfg, cache)                              -> SlotConsts
   prefill_slots(cfg, model, tokens, lengths)           -> (logits, k, v)
@@ -18,12 +22,16 @@ continuous batching (dense / moe families).
   decode_step_slots(cfg, model, cache, token, active)  -> (logits, cache)
   verify_step_slots(cfg, model, cache, tokens)         -> (logits, cache)
 
-``decode_step_slots`` and ``verify_step_slots`` serve both layouts: a cache
-with ``"kp"`` is the paged pool.
+Batch keys by family: ``tokens [B, S]`` for all; ``vlm`` may add ``patches
+[B, P, d_model]`` (prepended to the text, their positions dropped from the
+logits), ``audio`` needs ``frames [B, n_audio_ctx, d_model]`` (the
+encoder's input). ``decode_step_slots`` and ``verify_step_slots`` serve both
+layouts: a cache with ``"kp"`` is the paged pool.
 
 The KV cache is updated IN PLACE (the reference returns new arrays): the
 dict handed in is the dict handed back, and every tensor in it keeps its
-storage from step to step (``pos`` too is written in place), so a CUDA graph
+storage from step to step (``pos`` too is written in place, a ``[B]``
+vector in a slot cache, a 0-d tensor in the non-slot one), so a CUDA graph
 captured over a step replays against the same cache. Given its
 ``SlotConsts`` (``inv_freq=`` / ``consts=``) and a device slot index, a
 step reads no tensor on the host and builds no tensor from host data. The
@@ -31,8 +39,9 @@ serving forwards run under ``torch.inference_mode()``, and so do
 ``forward`` / ``loss`` unless ``train=True``: then they build the autograd
 graph through the reference's training arithmetic on both devices (no
 hand-written kernel, each block under ``cfg.remat``), for the train step
-(``launch/steps.py :: make_train_step``). The parameters are frozen until
-:func:`trainable` turns ``requires_grad`` on for the floating ones.
+(``launch/steps.py :: make_train_step``); the dense and moe families only.
+The parameters are frozen until :func:`trainable` turns ``requires_grad``
+on for the floating ones.
 """
 from __future__ import annotations
 
@@ -43,32 +52,50 @@ import torch
 import torch.nn as nn
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
 
-class Model(nn.Module):
-    """Embedding, the layer stack(s) and the final norm.
+#: the families a Model takes; the engine serves the first two only
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
-    An uncompressed model has one stack, ``stack``. A compressed one
-    (``cfg.moe_merged > 0``) has ``stack`` (layers below ``cfg.moe_split``,
-    absent at split 0) and ``stack_c`` whose expert tables hold
-    ``cfg.moe_merged`` rows; with heterogeneous per-layer budgets
-    (``cfg.moe_merged_layers``) the tables stay padded to the largest and each
-    layer's ``live`` / ``remap`` keep the pad rows unreachable.
+
+class Model(nn.Module):
+    """Embedding, the layers of ``cfg.family`` and the final norm, the
+    reference's parameter tree one module per leaf group:
+
+    * ``dense`` / ``moe`` / ``vlm``: the decoder stack ``stack``. A
+      compressed one (``cfg.moe_merged > 0``) has ``stack`` (layers below
+      ``cfg.moe_split``, absent at split 0) and ``stack_c`` whose expert
+      tables hold ``cfg.moe_merged`` rows; with heterogeneous per-layer
+      budgets (``cfg.moe_merged_layers``) the tables stay padded to the
+      largest and each layer's ``live`` / ``remap`` keep the pad rows
+      unreachable;
+    * ``ssm``: ``ssm_ln`` and ``ssm``, one norm and one Mamba2 block a layer;
+    * ``hybrid``: ``hybrid`` (``transformer.HybridStack``);
+    * ``audio``: ``encdec`` (``transformer.EncDec``).
 
     Weights are drawn layer by layer from ``generator`` (a ``torch.Generator``
     on ``device``), directly in ``cfg.dtype``."""
 
     def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"only the token-only families (dense / moe) are ported, "
-                f"not {cfg.family}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {cfg.family}")
         self.cfg = cfg
         self.embed = L.Embed(cfg, device, generator)
-        if cfg.moe is not None and cfg.moe_merged:
+        dt = cfg.param_dtype
+        if cfg.family == "ssm":
+            self.ssm_ln = nn.ModuleList(L.RMSNorm(cfg.d_model, dt, device)
+                                        for _ in range(cfg.n_layers))
+            self.ssm = nn.ModuleList(S.Mamba(cfg, device, generator)
+                                     for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
+            self.hybrid = T.HybridStack(cfg, device, generator)
+        elif cfg.family == "audio":
+            self.encdec = T.EncDec(cfg, device, generator)
+        elif cfg.moe is not None and cfg.moe_merged:
             if cfg.moe_split > 0:
                 self.stack = nn.ModuleList(
                     T.Block(cfg, device, generator)
@@ -81,11 +108,12 @@ class Model(nn.Module):
         else:
             self.stack = nn.ModuleList(
                 T.Block(cfg, device, generator) for _ in range(cfg.n_layers))
-        self.final_ln = L.RMSNorm(cfg.d_model, cfg.param_dtype, device)
+        self.final_ln = L.RMSNorm(cfg.d_model, dt, device)
         self.requires_grad_(False)
 
     def stacks(self) -> List[nn.ModuleList]:
-        """The stacks in forward order (``stack`` then ``stack_c``)."""
+        """The decoder stacks in forward order (``stack`` then ``stack_c``;
+        none in the ssm, hybrid and audio families)."""
         return [getattr(self, key) for key in ("stack", "stack_c")
                 if hasattr(self, key)]
 
@@ -111,22 +139,34 @@ def trainable(model: Model, on: bool = True) -> Model:
     return model
 
 
+def split_name(name: str) -> Tuple[str, Optional[int]]:
+    """A module path's reference leaf name and layer: the first integer
+    component is the layer index of a stack the reference stacks along a
+    leading ``[L, ...]`` axis (``"stack.3.attn.wq"`` -> ``("stack.attn.wq",
+    3)``, ``"hybrid.mamba.5.A_log"`` -> ``("hybrid.mamba.A_log", 5)``);
+    ``(name, None)`` for a leaf outside any stack."""
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            return ".".join(parts[:i] + parts[i + 1:]), int(part)
+    return name, None
+
+
 def leaf_groups(model: Model) -> Dict[str, Tuple[List[torch.Tensor], bool]]:
     """Every leaf of the reference's parameter tree by its dotted name
-    (``"stack.attn.wq"``, ``"embed.tok"``), in the model's own tensors:
-    ``(the layers' tensors in order, True)`` for a layer stack's leaf, which
-    the reference stacks along a leading ``[L, ...]`` axis, ``([tensor],
-    False)`` for the embedding and the final norm."""
+    (``"stack.attn.wq"``, ``"embed.tok"``, ``"hybrid.shared_attn.wq"``), in
+    the model's own tensors: ``(the layers' tensors in order, True)`` for a
+    layer stack's leaf (:func:`split_name`), ``([tensor], False)`` for a
+    leaf outside the stacks."""
     named = dict(model.named_parameters())
     named.update(dict(model.named_buffers()))
     out: Dict[str, Tuple[List[torch.Tensor], bool]] = {}
     for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] in ("stack", "stack_c"):
-            ref = ".".join([parts[0]] + parts[2:])
-            out.setdefault(ref, ([], True))[0].append(t)
-        else:
+        ref, layer = split_name(name)
+        if layer is None:
             out[name] = ([t], False)
+        else:
+            out.setdefault(ref, ([], True))[0].append(t)
     return out
 
 
@@ -154,6 +194,9 @@ def shape_tree(model: Model) -> dict:
 
 
 def _inv_freq(cfg: ModelConfig, device):
+    """RoPE's inverse frequencies, None for an attention-free family."""
+    if cfg.is_attention_free:
+        return None
     return L.rope_freqs(cfg.hd, cfg.rope_theta, device=device)
 
 
@@ -177,26 +220,68 @@ def slot_consts(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> SlotConsts:
     return SlotConsts(inv_freq, int(cache["s_max"]), int(cache["kv_block"]))
 
 
+def _ssm_stack(cfg: ModelConfig, model: Model, x: torch.Tensor,
+               return_states: bool = False):
+    """The ssm family's layers over a full sequence. Returns y, and with
+    ``return_states`` the per-layer :class:`mamba.SSMState` list."""
+    states = []
+    for ln, mp in zip(model.ssm_ln, model.ssm):
+        hn = L.rmsnorm(ln, x, cfg.norm_eps)
+        if return_states:
+            out, st = S.mamba_apply(cfg, mp, hn, return_state=True)
+            states.append(st)
+        else:
+            out = S.mamba_apply(cfg, mp, hn)
+        x = x + out
+    return (x, states) if return_states else x
+
+
+def _with_patches(cfg: ModelConfig, x: torch.Tensor, batch) -> torch.Tensor:
+    """The vlm family's ``patches`` prepended to the text embeddings."""
+    if cfg.family == "vlm" and "patches" in batch:
+        return torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
+
+
 def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
             capture: bool = False, train: bool = False):
-    """Full-sequence forward. batch: ``{"tokens": [B, S]}``. Returns (logits
-    ``[B, S, V]`` fp32, aux loss (summed over the layers), captures or None).
-    Captures: ``(expert_inputs [L, B, S, d], usage_counts [L, N])`` of every
-    MoE layer, ``stack`` then ``stack_c``. ``train``: outside inference
-    mode, the training arithmetic, differentiable (module docstring)."""
+    """Full-sequence forward. batch: ``{"tokens": [B, S]}`` (and ``patches``
+    / ``frames``, module docstring). Returns (logits ``[B, S, V]`` fp32, aux
+    loss (summed over the layers), captures or None). Captures:
+    ``(expert_inputs [L, B, S, d], usage_counts [L, N])`` of every MoE
+    layer, ``stack`` then ``stack_c``. ``train``: outside inference mode,
+    the training arithmetic, differentiable (module docstring; dense and
+    moe only)."""
+    if train and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported")
     with contextlib.nullcontext() if train else torch.inference_mode():
-        inv_freq = _inv_freq(cfg, batch["tokens"].device)
-        x = L.embed_apply(model.embed, batch["tokens"])
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        caps_list = []
-        for blocks in model.stacks():
-            x, a, caps = T.stack_apply(cfg, blocks, x, inv_freq=inv_freq,
-                                       capture=capture, train=train)
-            aux = aux + a
-            caps_list.append(caps)
+        dev = batch["tokens"].device
+        inv_freq = _inv_freq(cfg, dev)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         caps = None
-        if capture and cfg.moe is not None:
-            caps = tuple(torch.cat(parts, dim=0) for parts in zip(*caps_list))
+        x = L.embed_apply(model.embed, batch["tokens"])
+        if cfg.family == "audio":
+            enc_out = T.encode(cfg, model.encdec, batch["frames"])
+            x = T.decode_stack_apply(cfg, model.encdec, x, enc_out,
+                                     inv_freq=inv_freq)
+        elif cfg.family == "ssm":
+            x = _ssm_stack(cfg, model, x)
+        elif cfg.family == "hybrid":
+            x = T.hybrid_apply(cfg, model.hybrid, x, inv_freq=inv_freq)
+        else:
+            x = _with_patches(cfg, x, batch)
+            caps_list = []
+            for blocks in model.stacks():
+                x, a, c = T.stack_apply(cfg, blocks, x, inv_freq=inv_freq,
+                                        capture=capture, train=train)
+                aux = aux + a
+                caps_list.append(c)
+            if capture and cfg.moe is not None:
+                caps = tuple(torch.cat(parts, dim=0)
+                             for parts in zip(*caps_list))
+            if cfg.family == "vlm" and "patches" in batch:
+                x = x[:, batch["patches"].shape[1]:]   # text positions only
         x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
         return L.lm_head(cfg, model.embed, x, train=train), aux, caps
 
@@ -221,6 +306,140 @@ def loss(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
                                                         min=1.0)
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe is not None else 0.0
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# the non-slot API: one position for the whole batch (the fixed-batch server)
+# ---------------------------------------------------------------------------
+
+#: rows per block of the non-slot cache seen as a pool (the engine's default
+#: ``kv_block``)
+KV_BLOCK = 16
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, s_max: int,
+               device) -> Dict[str, object]:
+    """The decode cache of :func:`prefill` / :func:`decode_step`, zeros,
+    ``pos`` a 0-d int32 tensor on ``device``.
+
+    * dense / moe / vlm / audio: ``k`` / ``v`` ``[L, B, rows, nkv, hd]``
+      (audio: the decoder's self-attention), ``rows`` = ``s_max`` rounded
+      up to a multiple of :data:`KV_BLOCK` (decode reads the cache through the
+      paged kernel over a contiguous table, ``layers.attn_decode``; the rows
+      past ``pos`` are masked, the rows past ``s_max`` never visible), with
+      ``s_max`` and ``kv_block`` as 0-d int tensors on the host; audio adds
+      ``enc`` ``[B, n_audio_ctx, d]``, the encoder's output;
+    * ssm: ``ssm``, a :class:`mamba.SSMState` of the layers' states stacked
+      ``[L, ...]``;
+    * hybrid: ``ssm`` as ssm, and ``k`` / ``v`` ``[nseg, B, rows, nkv, hd]``,
+      one entry per segment of the shared attention block.
+
+    The reference allocates the prompt's rows and pads them to ``s_max``
+    after the prefill; here the rows are allocated up front."""
+    cache: Dict[str, object] = {
+        "pos": torch.zeros((), dtype=torch.int32, device=device)}
+    rows = -(-s_max // KV_BLOCK) * KV_BLOCK
+    kv_layers = (0 if cfg.family == "ssm" else T.n_segments(cfg)
+                 if cfg.family == "hybrid" else cfg.n_layers)
+    if cfg.family in ("ssm", "hybrid"):
+        st = S.init_ssm_state(cfg, batch_size, device)
+        cache["ssm"] = S.SSMState(
+            *(torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
+                          device=device) for a in st))
+    if kv_layers:
+        shape = (kv_layers, batch_size, rows, cfg.n_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=cfg.param_dtype, device=device)
+        cache["v"] = torch.zeros_like(cache["k"])
+        cache["s_max"] = torch.tensor(s_max)
+        cache["kv_block"] = torch.tensor(KV_BLOCK)
+    if cfg.family == "audio":
+        cache["enc"] = torch.zeros((batch_size, cfg.n_audio_ctx, cfg.d_model),
+                                   dtype=cfg.param_dtype, device=device)
+    return cache
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
+            s_max: Optional[int] = None):
+    """Process the prompts (batch as :func:`forward`'s); returns
+    (last-position logits ``[B, V]`` fp32, cache). ``s_max``: the cache's
+    capacity in positions (prompt, patches included, plus the generation
+    budget; default, or anything smaller: the prompt's length, no room to
+    decode), the reference's."""
+    tokens = batch["tokens"]
+    B, dev = tokens.shape[0], tokens.device
+    inv_freq = _inv_freq(cfg, dev)
+    x = L.embed_apply(model.embed, tokens)
+    ks = vs = states = enc_out = None
+    if cfg.family == "audio":
+        enc_out = T.encode(cfg, model.encdec, batch["frames"])
+        x, ks, vs = T.decode_stack_prefill(cfg, model.encdec, x, enc_out,
+                                           inv_freq=inv_freq)
+    elif cfg.family == "ssm":
+        x, states = _ssm_stack(cfg, model, x, return_states=True)
+    elif cfg.family == "hybrid":
+        x, states, ks, vs = T.hybrid_prefill(cfg, model.hybrid, x,
+                                             inv_freq=inv_freq)
+    else:
+        x = _with_patches(cfg, x, batch)
+        ks_l, vs_l = [], []
+        for blocks in model.stacks():
+            x, k, v = T.stack_prefill(cfg, blocks, x, inv_freq=inv_freq)
+            ks_l.append(k)
+            vs_l.append(v)
+        ks, vs = torch.cat(ks_l, dim=0), torch.cat(vs_l, dim=0)
+    n = x.shape[1]
+    cache = init_cache(cfg, B, max(n, s_max or 0), dev)
+    if ks is not None:
+        cache["k"][:, :, :n] = ks
+        cache["v"][:, :, :n] = vs
+    if states is not None:
+        for field, stacked in zip(S.SSMState._fields, cache["ssm"]):
+            stacked.copy_(torch.stack([getattr(st, field) for st in states]))
+    if enc_out is not None:
+        cache["enc"].copy_(enc_out)
+    cache["pos"].fill_(n)
+    x = L.rmsnorm(model.final_ln, x[:, -1:], cfg.norm_eps)
+    return L.lm_head(cfg, model.embed, x)[:, 0], cache
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, model: Model, cache: Dict[str, object],
+                token: torch.Tensor):
+    """One decode step of the whole batch at the cache's one position; the
+    cache is updated IN PLACE (``pos`` advanced in its tensor). token:
+    ``[B]`` integer. The attention layers write their K/V row at ``pos`` and
+    attend rows ``<= pos`` through ``layers.attn_decode`` (the paged kernel
+    over the contiguous table, as the engine's dense decode), the Mamba2
+    layers advance their states. Returns (logits ``[B, V]`` fp32, cache)."""
+    inv_freq = _inv_freq(cfg, token.device)
+    x = L.embed_apply(model.embed, token[:, None])
+    pos = cache["pos"]
+    view = None
+    if "k" in cache:                           # one for every layer
+        view = L.decode_view(pos.expand(x.shape[0]), cache["k"].shape[2],
+                             int(cache["s_max"]), int(cache["kv_block"]))
+    if cfg.family == "audio":
+        x = T.decode_stack_step(cfg, model.encdec, x, cache["enc"],
+                                cache["k"], cache["v"], pos,
+                                inv_freq=inv_freq, view=view)
+    elif cfg.family == "ssm":
+        x = T.ssm_layers_decode(cfg, model.ssm_ln, model.ssm, x, cache["ssm"],
+                                range(cfg.n_layers))
+    elif cfg.family == "hybrid":
+        x = T.hybrid_decode(cfg, model.hybrid, x, cache, pos,
+                            inv_freq=inv_freq, view=view)
+    else:
+        lo = 0
+        for blocks in model.stacks():
+            hi = lo + len(blocks)
+            x, _, _ = T.stack_decode(cfg, blocks, x, cache["k"][lo:hi],
+                                     cache["v"][lo:hi], pos,
+                                     inv_freq=inv_freq, view=view)
+            lo = hi
+    pos.add_(1)
+    x = L.rmsnorm(model.final_ln, x, cfg.norm_eps)
+    return L.lm_head(cfg, model.embed, x)[:, 0], cache
 
 
 def init_slot_cache(cfg: ModelConfig, n_slots: int, s_max: int,

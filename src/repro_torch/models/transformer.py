@@ -1,6 +1,7 @@
-"""Decoder-only layer stacks (dense MLP or MoE blocks): the full-sequence
-forward with calibration capture, and the serving path (prefill, decode and
-speculative verify).
+"""Layer stacks: decoder-only (dense MLP or MoE blocks; the full-sequence
+forward with calibration capture, and the serving path: prefill, decode at
+one position or per slot, speculative verify), hybrid (Mamba2 blocks and one
+shared attention / MLP block, zamba2) and encoder-decoder (whisper).
 
 The reference scans stacked ``[L, ...]`` parameters; here a stack is a Python
 sequence of :class:`Block` modules and the scan is a loop. Under training
@@ -22,6 +23,7 @@ import torch.nn as nn
 from torch.utils import checkpoint as CP
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as S
 from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
 
@@ -241,3 +243,247 @@ def stack_verify_slots_paged(cfg: ModelConfig, blocks: Sequence[Block], xs,
                           L.attn_verify_slots_paged(
                               cfg, p, hn, kp[i], vp[i], _sl(ks, i), _sl(vs, i),
                               tab, pos, inv_freq=inv_freq))
+
+
+def stack_decode(cfg: ModelConfig, blocks: Sequence[Block], x: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 pos: torch.Tensor, *, inv_freq,
+                 view: Optional[L.DecodeView] = None):
+    """One-token decode at ONE position for the whole batch (the non-slot
+    cache; ``pos`` a 0-d tensor): :func:`stack_decode_slots` with ``pos``
+    expanded to ``[B]``, so every layer runs ``layers.attn_decode``'s paged
+    kernel over the contiguous table. cache_k/v ``[L, B, rows, nkv, hd]``
+    updated IN PLACE. Returns (y, cache_k, cache_v)."""
+    return stack_decode_slots(cfg, blocks, x, cache_k, cache_v,
+                              pos.expand(x.shape[0]), inv_freq=inv_freq,
+                              view=view)
+
+
+# ---------------------------------------------------------------------------
+# hybrid stack (zamba2): Mamba2 blocks + ONE shared attention / MLP block
+# read after every ``hybrid_attn_every`` of them
+# ---------------------------------------------------------------------------
+
+class HybridStack(nn.Module):
+    """``mamba_ln`` / ``mamba``: one norm and one Mamba2 block per layer;
+    ``shared_ln1 shared_attn shared_ln2 shared_mlp``: the one transformer
+    block every segment reads (its weights shared, its KV cache one entry
+    per segment)."""
+
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.mamba_ln = nn.ModuleList(L.RMSNorm(cfg.d_model, dt, device)
+                                      for _ in range(cfg.n_layers))
+        self.mamba = nn.ModuleList(S.Mamba(cfg, device, generator)
+                                   for _ in range(cfg.n_layers))
+        self.shared_ln1 = L.RMSNorm(cfg.d_model, dt, device)
+        self.shared_attn = L.Attention(cfg, device, generator)
+        self.shared_ln2 = L.RMSNorm(cfg.d_model, dt, device)
+        self.shared_mlp = L.MLP(cfg.d_model, cfg.d_ff, dt, device, generator)
+
+
+def n_segments(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid_attn_every
+
+
+def _segment_layers(cfg: ModelConfig, s_i: int) -> range:
+    every = cfg.hybrid_attn_every
+    return range(s_i * every, (s_i + 1) * every)
+
+
+def _shared_mlp(cfg: ModelConfig, p: HybridStack, x: torch.Tensor):
+    return x + L.mlp_apply(p.shared_mlp,
+                           L.rmsnorm(p.shared_ln2, x, cfg.norm_eps))
+
+
+def hybrid_apply(cfg: ModelConfig, p: HybridStack, x: torch.Tensor, *,
+                 inv_freq) -> torch.Tensor:
+    """Full-sequence forward of the hybrid stack."""
+    eps = cfg.norm_eps
+    for s_i in range(n_segments(cfg)):
+        for li in _segment_layers(cfg, s_i):
+            x = x + S.mamba_apply(cfg, p.mamba[li],
+                                  L.rmsnorm(p.mamba_ln[li], x, eps))
+        h = x + L.attn_apply(cfg, p.shared_attn,
+                             L.rmsnorm(p.shared_ln1, x, eps),
+                             inv_freq=inv_freq)
+        x = _shared_mlp(cfg, p, h)
+    return x
+
+
+def hybrid_prefill(cfg: ModelConfig, p: HybridStack, x: torch.Tensor, *,
+                   inv_freq):
+    """Full-sequence forward that also emits the decode cache's contents.
+    Returns (y, per-layer :class:`mamba.SSMState` list, k ``[nseg, B, S,
+    nkv, hd]``, v): one KV entry per segment of the shared block."""
+    eps = cfg.norm_eps
+    states, ks, vs = [], [], []
+    for s_i in range(n_segments(cfg)):
+        for li in _segment_layers(cfg, s_i):
+            out, st = S.mamba_apply(cfg, p.mamba[li],
+                                    L.rmsnorm(p.mamba_ln[li], x, eps),
+                                    return_state=True)
+            x = x + out
+            states.append(st)
+        a, k, v = L.attn_prefill(cfg, p.shared_attn,
+                                 L.rmsnorm(p.shared_ln1, x, eps),
+                                 inv_freq=inv_freq)
+        x = _shared_mlp(cfg, p, x + a)
+        ks.append(k)
+        vs.append(v)
+    return x, states, torch.stack(ks), torch.stack(vs)
+
+
+def ssm_layers_decode(cfg: ModelConfig, lns, mambas, x: torch.Tensor,
+                      state: S.SSMState, layers) -> torch.Tensor:
+    """One token through the Mamba2 layers ``layers`` (indices into
+    ``lns`` / ``mambas`` and the stacked ``state``), each layer's residual
+    in turn; ``state``'s ``[L, ...]`` tensors are updated IN PLACE."""
+    for li in layers:
+        out, st = S.mamba_decode(cfg, mambas[li],
+                                 L.rmsnorm(lns[li], x, cfg.norm_eps),
+                                 S.SSMState(state.ssm[li], state.conv[li]))
+        state.ssm[li].copy_(st.ssm)
+        state.conv[li].copy_(st.conv)
+        x = x + out
+    return x
+
+
+def hybrid_decode(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
+                  cache: dict, pos: torch.Tensor, *, inv_freq,
+                  view: Optional[L.DecodeView] = None) -> torch.Tensor:
+    """One token through the hybrid stack (0-d ``pos``). cache: ``"ssm"``,
+    a :class:`mamba.SSMState` of ``[L, ...]`` tensors, and ``"k"`` / ``"v"``
+    ``[nseg, B, rows, nkv, hd]``, all updated IN PLACE; ``view``: the step's
+    ``layers.decode_view``. Returns y."""
+    eps = cfg.norm_eps
+    for s_i in range(n_segments(cfg)):
+        x = ssm_layers_decode(cfg, p.mamba_ln, p.mamba, x, cache["ssm"],
+                              _segment_layers(cfg, s_i))
+        a, _, _ = L.attn_decode(cfg, p.shared_attn,
+                                L.rmsnorm(p.shared_ln1, x, eps),
+                                cache["k"][s_i], cache["v"][s_i], pos,
+                                inv_freq=inv_freq, view=view)
+        x = _shared_mlp(cfg, p, x + a)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper-style)
+# ---------------------------------------------------------------------------
+
+class EncBlock(nn.Module):
+    """ln1 -> self-attention (no RoPE, no mask) -> ln2 -> MLP."""
+
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.ln1 = L.RMSNorm(cfg.d_model, dt, device)
+        self.attn = L.Attention(cfg, device, generator)
+        self.ln2 = L.RMSNorm(cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dt, device, generator)
+
+
+class DecBlock(nn.Module):
+    """ln1 -> causal self-attention -> ln_x -> cross-attention over the
+    encoder's output -> ln2 -> MLP."""
+
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.ln1 = L.RMSNorm(cfg.d_model, dt, device)
+        self.self_attn = L.Attention(cfg, device, generator)
+        self.ln_x = L.RMSNorm(cfg.d_model, dt, device)
+        self.cross_attn = L.Attention(cfg, device, generator)
+        self.ln2 = L.RMSNorm(cfg.d_model, dt, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dt, device, generator)
+
+
+class EncDec(nn.Module):
+    """``enc``: ``n_layers`` encoder blocks, ``enc_ln`` the encoder's final
+    norm; ``dec``: ``n_layers`` decoder blocks."""
+
+    def __init__(self, cfg: ModelConfig, device, generator: torch.Generator):
+        super().__init__()
+        self.enc = nn.ModuleList(EncBlock(cfg, device, generator)
+                                 for _ in range(cfg.n_layers))
+        self.enc_ln = L.RMSNorm(cfg.d_model, cfg.param_dtype, device)
+        self.dec = nn.ModuleList(DecBlock(cfg, device, generator)
+                                 for _ in range(cfg.n_layers))
+
+
+def _sinusoid(S_len: int, d: int, device) -> torch.Tensor:
+    """``[S, d]`` fp32: sines of ``pos / 10000^(2i/d)`` then their
+    cosines."""
+    pos = torch.arange(S_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(cfg: ModelConfig, p: EncDec, frames: torch.Tensor) -> torch.Tensor:
+    """frames ``[B, n_audio_ctx, d]`` (precomputed frame embeddings, the
+    conv front end's stand-in) -> the encoder's output, in frames' type."""
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                           frames.device).to(frames.dtype)
+    eps = cfg.norm_eps
+    for b in p.enc:
+        x = x + L.attn_apply(cfg, b.attn, L.rmsnorm(b.ln1, x, eps),
+                             inv_freq=None, causal=False)
+        x = x + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, x, eps))
+    return L.rmsnorm(p.enc_ln, x, eps)
+
+
+def _cross_mlp(cfg: ModelConfig, b: DecBlock, h: torch.Tensor,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    """The decoder block after its self-attention: the cross-attention
+    (encoder K and V projected anew at every call, as the reference does)
+    and the MLP, each with its residual."""
+    eps = cfg.norm_eps
+    h = h + L.attn_apply(cfg, b.cross_attn, L.rmsnorm(b.ln_x, h, eps),
+                         inv_freq=None, kv=enc_out)
+    return h + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, h, eps))
+
+
+def decode_stack_apply(cfg: ModelConfig, p: EncDec, x: torch.Tensor,
+                       enc_out: torch.Tensor, *, inv_freq) -> torch.Tensor:
+    """The decoder's full-sequence forward over the encoder's output."""
+    for b in p.dec:
+        h = x + L.attn_apply(cfg, b.self_attn,
+                             L.rmsnorm(b.ln1, x, cfg.norm_eps),
+                             inv_freq=inv_freq, causal=True)
+        x = _cross_mlp(cfg, b, h, enc_out)
+    return x
+
+
+def decode_stack_prefill(cfg: ModelConfig, p: EncDec, x: torch.Tensor,
+                         enc_out: torch.Tensor, *, inv_freq):
+    """:func:`decode_stack_apply` that also emits the self-attention's K/V.
+    Returns (y, k ``[L, B, S, nkv, hd]``, v)."""
+    ks, vs = [], []
+    for b in p.dec:
+        a, k, v = L.attn_prefill(cfg, b.self_attn,
+                                 L.rmsnorm(b.ln1, x, cfg.norm_eps),
+                                 inv_freq=inv_freq)
+        x = _cross_mlp(cfg, b, x + a, enc_out)
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def decode_stack_step(cfg: ModelConfig, p: EncDec, x: torch.Tensor,
+                      enc_out: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, pos: torch.Tensor, *, inv_freq,
+                      view: Optional[L.DecodeView] = None) -> torch.Tensor:
+    """One token through the decoder (0-d ``pos``): the self-attention over
+    ``cache_k`` / ``cache_v`` ``[L, B, rows, nkv, hd]`` (updated IN PLACE)
+    through ``layers.attn_decode``, the cross-attention over ``enc_out``.
+    Returns y."""
+    for i, b in enumerate(p.dec):
+        a, _, _ = L.attn_decode(cfg, b.self_attn,
+                                L.rmsnorm(b.ln1, x, cfg.norm_eps),
+                                cache_k[i], cache_v[i], pos,
+                                inv_freq=inv_freq, view=view)
+        x = _cross_mlp(cfg, b, x + a, enc_out)
+    return x

@@ -106,6 +106,23 @@ def test_plain_flash_sweep(S, hd, causal):
         atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_flash_hd80_vs_reference(causal, dtype):
+    """zamba2's head width, 80 (not a multiple of 16): the plain version
+    against the reference's oracle, a prefill and a cross-attention shape
+    (Sq != Sk, the whisper decoder's)."""
+    for sq, sk in ((40, 40), (8, 72)):
+        if causal and sq != sk:
+            continue
+        (qj, qt), (kj, kt), (vj, vt) = _qkv([(2, 3, sq, 80), (2, 3, sk, 80),
+                                             (2, 3, sk, 80)], dtype, seed=sk)
+        got = ref.flash_attention(qt, kt, vt, causal=causal)
+        assert got.shape == (2, 3, sq, 80)
+        want = ref_ref.flash_attention(qj, kj, vj, causal=causal)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+
+
 def test_plain_flash_softmax_invariance():
     """q = 0: every visible key weighs alike, so a causal row is the mean of
     the value rows up to it."""
@@ -158,10 +175,10 @@ def test_flash_dtype_route_chooses_the_entry_point_without_launching():
     assert FA.FLASH.ROUTE_LAUNCHES == {"tensor_core": 0, "cuda_core": 0}
 
 
-@pytest.mark.parametrize("hd", [8, 24, 40, 272])
+@pytest.mark.parametrize("hd", [4, 12, 20, 272])
 def test_flash_head_widths_the_tensor_core_kernel_does_not_take(hd):
-    """bf16 takes hd a multiple of 16 up to 256, refused before launch;
-    fp32 (the CUDA-core kernel) any hd up to 256."""
+    """bf16 takes hd a multiple of 8 from 8 to 256, anything else refused
+    before launch; fp32 (the CUDA-core kernel) any hd up to 256."""
     from repro_torch.kernels import flash_attention as FA
     q = torch.zeros((1, 4, 5, hd), dtype=torch.bfloat16)
     k = torch.zeros((1, 2, 7, hd), dtype=torch.bfloat16)
@@ -176,11 +193,11 @@ def test_flash_head_widths_the_tensor_core_kernel_does_not_take(hd):
     assert FA.FLASH.LAUNCHES == 0
 
 
-@pytest.mark.parametrize("hd", [16, 48, 128, 256])
+@pytest.mark.parametrize("hd", [8, 16, 24, 48, 80, 96, 128, 256])
 def test_flash_tensor_core_layouts(hd):
-    """Every multiple of 16 up to 256 is taken, in the model's strided
-    layout too; a stride or a base the 16-byte copies cannot follow is
-    refused."""
+    """Every multiple of 8 up to 256 is taken (zamba2's 80 and
+    phi-3-vision's 96 among them), in the model's strided layout too; a
+    stride or a base the 16-byte copies cannot follow is refused."""
     from repro_torch.kernels import flash_attention as FA
     bf = torch.bfloat16
     qm = torch.zeros((2, 9, 4, hd), dtype=bf)             # [B, S, H, hd]
@@ -239,9 +256,15 @@ def test_attn_apply_vs_reference(causal, positions):
                        causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        L.attn_apply(pcfg, pm, torch.from_numpy(x), inv_freq=None,
-                     kv=torch.from_numpy(x))
+    # cross-attention (the whisper decoder's): k and v from an encoder
+    # output of another length, no RoPE, no mask
+    enc = rng.standard_normal((2, 19, rcfg.d_model)).astype(np.float32)
+    want = RL.attn_apply(rcfg, rp, jnp.asarray(x), inv_freq=None,
+                         kv=jnp.asarray(enc))
+    got = L.attn_apply(pcfg, pm, torch.from_numpy(x), inv_freq=None,
+                       kv=torch.from_numpy(enc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_attend_with_query_offsets_is_the_verify_mask():
