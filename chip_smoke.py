@@ -151,7 +151,8 @@ one JSON line:
             --profile, one decode block of the dense cache and one of the
             paged int8 pool under torch.profiler)
   families  the fixed-batch server (launch.serve.FixedBatchServer, the
-            non-slot model API, eager) over every family: each ARCH_IDS
+            non-slot model API, its prefill and each step replayed from
+            CUDA graphs) over every family: each ARCH_IDS
             config reduced in fp32 on the card against the same server on
             the CPU, token for token, with the reference's decode == forward
             contract on the card (its shape and tolerance); then
@@ -163,7 +164,15 @@ one JSON line:
             against the path's and on the tensor-core routes, the same
             tokens twice, ms per prefill and per step, tokens/s, peak
             memory, decode == forward (a reading); granite-8b's server ==
-            its engine token for token. In the serve phase, a reading:
+            its engine token for token; each of the five on its graphs
+            against the same bodies run eagerly, bitwise (the prefill's
+            and every step's logits, the tokens, greedy and at
+            temperature 0.7), one step replay crediting exactly an eager
+            step's launches by kernel and route, ms a step and a prefill
+            eager against graph in alternating pairs, the graphs' capture
+            and instantiate seconds and pool bytes (with --profile, one
+            replayed step under torch.profiler). In the serve phase, a
+            reading:
             qwen3-moe at --layers through the server against the engine
             (C5)
   train     the trainer (launch.train.train, the reference's training
@@ -175,7 +184,18 @@ one JSON line:
             torch.use_deterministic_algorithms(True) (RESUME_K steps, the
             trainer's checkpoint to a temporary directory, a fresh trainer,
             RESUME_K more, against 2 * RESUME_K straight: bitwise or the
-            differing leaves named with their gaps); then qwen3-moe-30b-a3b
+            differing leaves named with their gaps); the other four
+            families (mamba2, zamba2 at 4 layers, whisper with seeded
+            frames, phi-3-vision with seeded patches) reduced in fp32
+            through the train step, each of 5 AdamW steps on the card from
+            the CPU's state against the CPU's step, and the straight runs
+            as a reading; then mamba2-370m, zamba2-2.7b, whisper-base
+            (1500 frames) and phi-3-vision-4.2b (64 patches) at their
+            published widths and depth, bf16, their remat, AdamW,
+            gradients in bf16, TRAIN_FAMILY_STEPS steps at TRAIN_BATCH x
+            TRAIN_SEQ: every loss finite, the last TRAIN_LOSS_DROP below
+            the first, no hand-written kernel launched; ms per step,
+            tokens/s, peak memory; then qwen3-moe-30b-a3b
             at its published widths, COMPRESS_LAYERS layers, bf16, remat
             "full", capacity dispatch, AdamW, gradients in bf16,
             TRAIN_STEPS steps of SyntheticLM(seed) at TRAIN_BATCH x
@@ -3329,14 +3349,17 @@ def decode_vs_forward(cfg, model, batch, prompt: int, tokens, step_logits):
 
 def fixed_batch_family(cfg, model, device, seed: int, prompt: int, new: int,
                        card) -> dict:
-    """One model through ``FixedBatchServer`` at FAMILY_BATCH: a first
-    generate with every kernel's launches counted (zeroed just before, read
-    just after; checked against :func:`family_kernel_launches` and the
-    model dtype's routes) and the peak memory; a second one, which must give
-    the same tokens, on the host clock (tokens/s); then the prefill timed
-    alone and the decode steps replayed on the server's own tokens, each
-    timed (host clock around work that ends in a synchronise), their logits
-    held against the forward (:func:`decode_vs_forward`, a reading)."""
+    """One model through ``FixedBatchServer`` at FAMILY_BATCH, on its CUDA
+    graphs: a first generate (which captures them) with every kernel's
+    launches counted (zeroed just before, read just after, each replay
+    credited with its capture's; checked against
+    :func:`family_kernel_launches` and the model dtype's routes) and the
+    peak memory; a second one, which must give the same tokens, on the host
+    clock (tokens/s, replays only); then the prefill timed alone and the
+    decode steps replayed on the server's own tokens, both eager (``model``'s
+    functions, each timed: host clock around work that ends in a
+    synchronise), their logits held against the forward
+    (:func:`decode_vs_forward`, a reading)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as SV
     from repro_torch.models import model as MD
@@ -3406,21 +3429,13 @@ def fixed_batch_family(cfg, model, device, seed: int, prompt: int, new: int,
         card=card, tokens=tokens.tolist())
 
 
-def profile_family_step(cfg, model, device, seed: int, prompt: int) -> dict:
-    """One decode step of the fixed-batch path (after its prefill and a
-    warm-up step) under torch.profiler: host wall time, the device span
-    (CUDA events around the step), the device's busy share (the kernels'
-    own rows) and the kernels that take it, the hand-written ones' share."""
+def profile_call(fn) -> dict:
+    """``fn`` once (after its warm-up) under torch.profiler: host wall time,
+    the device span (CUDA events around it), the device's busy share (the
+    kernels' own rows) and the kernels that take it, the hand-written ones'
+    share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import model as MD
-    prompts, extra = family_inputs(cfg, device, seed, FAMILY_BATCH, prompt)
-    batch = family_batch(prompts, extra, device)
-    rows = prompt + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
-    logits, cache = MD.prefill(cfg, model, batch, s_max=rows + 2)
-    tok = logits.argmax(-1).to(torch.int32)
-    logits, cache = MD.decode_step(cfg, model, cache, tok)
-    tok = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3428,7 +3443,7 @@ def profile_family_step(cfg, model, device, seed: int, prompt: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         start.record()
-        MD.decode_step(cfg, model, cache, tok)
+        fn()
         end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -3453,6 +3468,96 @@ def profile_family_step(cfg, model, device, seed: int, prompt: int) -> dict:
                 hand_written_ms=sum(dev_us(e) for e in ours) / 1e3,
                 top=[dict(name=e.key[:60], count=e.count, ms=dev_us(e) / 1e3)
                      for e in kernels[:6]])
+
+
+def profile_family_step(cfg, model, device, seed: int, prompt: int) -> dict:
+    """One eager decode step of the fixed-batch path (after its prefill and
+    a warm-up step) under torch.profiler (:func:`profile_call`)."""
+    from repro_torch.models import model as MD
+    prompts, extra = family_inputs(cfg, device, seed, FAMILY_BATCH, prompt)
+    batch = family_batch(prompts, extra, device)
+    rows = prompt + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
+    logits, cache = MD.prefill(cfg, model, batch, s_max=rows + 2)
+    tok = logits.argmax(-1).to(torch.int32)
+    logits, cache = MD.decode_step(cfg, model, cache, tok)
+    tok = logits.argmax(-1).to(torch.int32)
+    return profile_call(lambda: MD.decode_step(cfg, model, cache, tok))
+
+
+def fixed_batch_graphs(cfg, model, device, seed: int, prompt: int, new: int,
+                       profile: bool = False) -> dict:
+    """The fixed-batch server on its CUDA graphs against the same bodies run
+    eagerly (a server whose ``_new_graph`` is None: on the card only this
+    comparison runs them so), FAMILY_BATCH prompts: greedy and at
+    TEMPERATURE, the tokens, the prefill's logits and every step's,
+    bitwise, the graphed server called twice (the first call captures, the
+    second replays only); one step replay credits exactly an eager step's
+    launches, by kernel and route; ms a step (10 pairs) and a prefill (3
+    pairs), eager against graph, alternating; the graphs' warm-up, capture
+    and instantiate seconds and pool bytes; with ``profile``, one replayed
+    step under torch.profiler (busy and idle share)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import model as MD
+    prompts, extra = family_inputs(cfg, device, seed, FAMILY_BATCH, prompt)
+    sc = SV.ServeConfig(arch=cfg.name, reduced=False, max_new_tokens=new,
+                        seed=seed)
+    graphed = SV.FixedBatchServer(sc, cfg=cfg, model=model, device=device)
+    eager = SV.FixedBatchServer(sc, cfg=cfg, model=model, device=device)
+    eager._new_graph = None
+    out = {}
+    for temperature in (0.0, TEMPERATURE):
+        for srv in (graphed, eager):
+            srv.sc = dataclasses.replace(sc, temperature=temperature)
+        want_logits = []
+        want = eager.generate(prompts, extra, logits_out=want_logits)
+        for call in ("capture", "replay"):
+            got_logits = []
+            got = graphed.generate(prompts, extra, logits_out=got_logits)
+            same = [bool(torch.equal(a, b))
+                    for a, b in zip(got_logits, want_logits)]
+            check(np.array_equal(got, want) and len(same) == new + 1
+                  and all(same),
+                  f"{cfg.name}, T {temperature}, {call}: the graphed "
+                  f"server differs from the eager bodies (tokens equal "
+                  f"{np.array_equal(got, want)}, logits bitwise "
+                  f"{sum(same)} of {len(same)})")
+        out[f"T {temperature}"] = dict(tokens_equal=True,
+                                       logits_bitwise=len(same))
+    batch = family_batch(prompts, extra, device)
+    rows = prompt + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
+    s_max = rows + new
+    g = graphed._graphed_for(FAMILY_BATCH, s_max)
+    tok = torch.zeros((FAMILY_BATCH,), dtype=torch.int32, device=device)
+    _, cache = MD.prefill(cfg, model, batch, s_max=s_max)
+    g["prefill"](model, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    MD.decode_step(cfg, model, cache, tok)
+    torch.cuda.synchronize()
+    eager_launches = ops.route_launch_counts()
+    ops.reset_launch_counts()
+    g["step"](model, g["cache"], tok)
+    torch.cuda.synchronize()
+    replay_launches = ops.route_launch_counts()
+    check(replay_launches == eager_launches,
+          f"{cfg.name}: one step replay credits {replay_launches}, an eager "
+          f"step launched {eager_launches}")
+    out["launches_per_step"] = {k: {r: n for r, n in v.items() if n}
+                                for k, v in eager_launches.items()
+                                if sum(v.values())}
+    out["step_ms"] = alternating_ms(
+        {"eager": lambda: MD.decode_step(cfg, model, cache, tok),
+         "graph": lambda: g["step"](model, g["cache"], tok)}, pairs=10)
+    out["prefill_ms"] = alternating_ms(
+        {"eager": lambda: MD.prefill(cfg, model, batch, s_max=s_max),
+         "graph": lambda: g["prefill"](model, batch)}, pairs=3)
+    if profile:
+        out["profile_graph_step"] = profile_call(
+            lambda: g["step"](model, g["cache"], tok))
+    out["graphs"] = graphed.graph_stats()
+    del cache, g, graphed, eager
+    return out
 
 
 def rehearse_families(args, device) -> dict:
@@ -3583,6 +3688,9 @@ def families_phase(args, device, card, totals) -> dict:
         if args.profile:
             res["profile_step"] = profile_family_step(cfg, model, device,
                                                       args.seed, prompt)
+        res["graph_vs_eager"] = fixed_batch_graphs(
+            cfg, model, device, args.seed, prompt, FAMILY_NEW,
+            profile=args.profile)
         res.update(init_s=build_s, seconds=time.perf_counter() - t1)
         del res["tokens"]
         emit("families", **res)
@@ -4084,6 +4192,276 @@ def resume_drill(device) -> dict:
                 losses_straight=straight["losses"], losses_resumed=resumed,
                 differing_param_leaves=params,
                 differing_state_leaves=state)
+
+
+#: the four families trained at their published widths and depth (bf16,
+#: each config's remat, AdamW at the trainer's lr, gradients in bf16):
+#: steps of SyntheticLM(seed) at TRAIN_BATCH x TRAIN_SEQ, with the family's
+#: seeded patches (vlm) or frames (audio)
+TRAIN_FAMILY_STEPS = 32
+
+
+def family_train_cfg(arch: str, reduced: bool):
+    """``arch`` as the train phase trains it: the published config, or the
+    reduced one in fp32 (zamba2 at 4 layers: two segments of its shared
+    block)."""
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = cfg.reduced().replace(dtype="float32")
+        if cfg.family == "hybrid":
+            cfg = cfg.replace(n_layers=4)
+    return cfg
+
+
+def family_train_batches(cfg, steps: int, batch: int, seq: int, seed: int,
+                         device):
+    """``steps`` train batches on ``device``, made one at a time on the
+    host: SyntheticLM(seed) tokens and the family's seeded inputs (patches
+    at the token embeddings' scale, standard normal frames, as
+    :func:`family_inputs`), in the model type."""
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for _ in range(steps):
+        b = {"tokens": torch.from_numpy(next(data)["tokens"]).to(
+            device, torch.int64)}
+        if cfg.family == "vlm":
+            b["patches"] = (torch.randn(
+                (batch, cfg.vlm_num_patches, cfg.d_model), generator=gen)
+                * 0.02).to(device, cfg.param_dtype)
+        if cfg.family == "audio":
+            b["frames"] = torch.randn(
+                (batch, cfg.n_audio_ctx, cfg.d_model), generator=gen).to(
+                    device, cfg.param_dtype)
+        yield b
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy a tree of tensors (nested dicts) into another of its shape."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+#: AdamW's b1, b2 and eps (``optim.adamw``'s defaults, the trainer's)
+ADAMW_B1, ADAMW_B2, ADAMW_EPS = 0.9, 0.95, 1e-8
+#: below this bias-corrected sqrt(v), a difference in a gradient's last bits
+#: moves AdamW's normalised update m / (sqrt(v) + eps) by a part of one
+NEAR_EPS = 10 * ADAMW_EPS
+
+
+def adamw_floor(states: list) -> dict:
+    """{parameter: the least bias-corrected sqrt(v) of each element over
+    ``states`` (flat optimizer states on the host, one after each step)}."""
+    out = {}
+    for t, st in enumerate(states):
+        for name, v in st.items():
+            if name.endswith(".v"):
+                x = (v.double() / (1 - ADAMW_B2 ** (t + 1))).sqrt()
+                key = name[:-len(".v")]
+                out[key] = torch.minimum(out[key], x) if key in out else x
+    return out
+
+
+def adamw_readings(states: list, name: str, idx: tuple) -> dict:
+    """An element's clipped gradient and the bias-corrected sqrt(v) AdamW
+    divided it by, step by step, read back from the optimizer state after
+    each step: ``g_t = (m_t - b1 m_{t-1}) / (1 - b1)``."""
+    g, root, m_last = [], [], 0.0
+    for t, st in enumerate(states):
+        m, v = float(st[name + ".m"][idx]), float(st[name + ".v"][idx])
+        g.append((m - ADAMW_B1 * m_last) / (1 - ADAMW_B1))
+        root.append((v / (1 - ADAMW_B2 ** (t + 1))) ** 0.5)
+        m_last = m
+    return dict(clipped_g=g, sqrt_v_hat=root)
+
+
+def straight_param_gaps(want: dict, got: dict, want_states: list,
+                        got_states: list, atol: float) -> dict:
+    """Two straight AdamW runs' parameters: the largest gap of the elements
+    whose sqrt(v) never fell below NEAR_EPS on either side (``far``) and of
+    those whose did (``near``: AdamW's eps decides a part of their lr), and
+    each element past ``atol`` with its readings on both sides."""
+    floor_w, floor_g = adamw_floor(want_states), adamw_floor(got_states)
+    far = near = 0.0
+    past = {}
+    for name, a in want.items():
+        gap = (a.detach().cpu().double()
+               - got[name].detach().cpu().double()).abs()
+        mask = (torch.minimum(floor_w[name], floor_g[name]) < NEAR_EPS
+                if name in floor_w else torch.zeros_like(gap, dtype=bool))
+        far = max(far, float(gap[~mask].max()) if (~mask).any() else 0.0)
+        near = max(near, float(gap[mask].max()) if mask.any() else 0.0)
+        for idx in (gap > atol).nonzero().tolist()[:4]:
+            idx = tuple(idx)
+            past[f"{name}{list(idx)}"] = dict(
+                gap=float(gap[idx]), near_eps=bool(mask[idx]), eps=ADAMW_EPS,
+                **({"card": adamw_readings(got_states, name, idx),
+                    "cpu": adamw_readings(want_states, name, idx)}
+                   if name in floor_w else {}))
+    return dict(far=far, near=near, past_atol=past)
+
+
+def train_family_card_vs_cpu(arch: str, device, seed: int) -> dict:
+    """The train step (``launch.steps.make_train_step``, AdamW at
+    REHEARSE_LR, the trainer's bf16 gradients) on the family's reduced fp32
+    config (:func:`family_train_cfg`), REHEARSE_STEPS steps on the card and
+    on the CPU from the same weights (the CPU's initialisation copied to the
+    card) and batches (patches or frames included). Each step on the card
+    starts from the CPU's parameters and optimizer state after the step
+    before: its loss within REHEARSE_LOSS_RTOL and every parameter after it
+    within REHEARSE_PARAM_ATOL of the CPU's. Then the same steps run
+    straight on each device: every loss within REHEARSE_LOSS_RTOL; every
+    parameter within REHEARSE_PARAM_ATOL but those whose sqrt(v) fell below
+    NEAR_EPS at some step on either device, where AdamW turns a difference
+    in a gradient's last bits into a part of lr (those within the most two
+    AdamW runs can part, 2 lr a step); each parameter past the tolerance
+    reported with its clipped gradient and sqrt(v) step by step on both
+    devices, beside eps. The trainer itself feeds token batches only (the
+    audio family it refuses, ROADMAP C13), so the step is driven here."""
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as MD
+    from repro_torch.optim import make_optimizer
+    cfg = family_train_cfg(arch, reduced=True)
+    batches = list(family_train_batches(cfg, REHEARSE_STEPS, *REHEARSE_SHAPE,
+                                        seed, "cpu"))
+
+    def trainer(dev):
+        model = MD.init(cfg, dev, seed=seed)
+        opt = make_optimizer("adamw", lr=REHEARSE_LR)
+        return [model, opt.init(MD.shape_tree(model)),
+                ST.make_train_step(cfg, opt)]
+
+    def step(t, i, dev):
+        t[0], t[1], loss, _ = t[2](t[0], t[1], {k: v.to(dev) for k, v in
+                                               batches[i].items()}, i)
+        return float(loss)
+
+    # each step on the card from the CPU's state after the step before
+    cpu, card = trainer("cpu"), trainer(device)
+    losses, loss_gap, worst, gaps = [], 0.0, 0.0, {}
+    for i in range(REHEARSE_STEPS):
+        card[0].load_state_dict(cpu[0].state_dict())
+        _copy_tree(card[1], cpu[1])
+        a, b = step(cpu, i, "cpu"), step(card, i, device)
+        losses.append(b)
+        loss_gap = max(loss_gap, abs(a - b) / abs(a))
+        gaps = leaf_gaps(model_leaves(cpu[0]), model_leaves(card[0]))
+        worst = max(worst, max(gaps.values(), default=0.0))
+    check(all(np.isfinite(losses)), f"train {arch}: non-finite loss {losses}")
+    check(loss_gap <= REHEARSE_LOSS_RTOL,
+          f"train {arch}: a card step's loss {loss_gap} (relative) off the "
+          f"CPU's from the same state")
+    check(worst <= REHEARSE_PARAM_ATOL,
+          f"train {arch}: a parameter {worst} off the CPU's after one step "
+          f"from the same state: {gaps}")
+    # straight runs
+    init = MD.init(cfg, "cpu", seed=seed).state_dict()
+    straight = []
+    for dev in ("cpu", device):
+        t = trainer(dev)
+        t[0].load_state_dict(init)
+        run, states = [], []
+        for i in range(REHEARSE_STEPS):
+            run.append(step(t, i, dev))
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in flat_leaves(t[1]).items()})
+        straight.append((run, model_leaves(t[0]), states))
+    (sc, sc_params, sc_states), (sg, sg_params, sg_states) = straight
+    s_loss_gap = max(abs(a - b) / abs(a) for a, b in zip(sc, sg))
+    check(s_loss_gap <= REHEARSE_LOSS_RTOL,
+          f"train {arch}: straight card losses {sg} against the CPU's {sc}")
+    s_gaps = straight_param_gaps(sc_params, sg_params, sc_states, sg_states,
+                                 REHEARSE_PARAM_ATOL)
+    check(s_gaps["far"] <= REHEARSE_PARAM_ATOL,
+          f"train {arch}: straight, a parameter {s_gaps['far']} off the "
+          f"CPU's away from AdamW's eps: {s_gaps['past_atol']}")
+    check(s_gaps["near"] <= 2 * REHEARSE_LR * REHEARSE_STEPS,
+          f"train {arch}: straight, a parameter near AdamW's eps "
+          f"{s_gaps['near']} off the CPU's")
+    n = len(model_leaves(cpu[0]))
+    return dict(family=cfg.family, layers=cfg.n_layers, steps=REHEARSE_STEPS,
+                batch=REHEARSE_SHAPE, losses_card=losses,
+                per_step=dict(max_loss_rel_gap=loss_gap,
+                              max_param_abs_gap=worst, leaves=n,
+                              leaves_bitwise_equal_after_last=n - len(gaps)),
+                straight=dict(losses_card=sg, losses_cpu=sc,
+                              max_loss_rel_gap=s_loss_gap,
+                              max_param_abs_gap_far=s_gaps["far"],
+                              max_param_abs_gap_near_eps=s_gaps["near"],
+                              near_eps=NEAR_EPS,
+                              past_atol=s_gaps["past_atol"]))
+
+
+def train_family_full_width(arch: str, device, card, seed: int) -> dict:
+    """The train step at ``arch``'s published widths and depth, bf16, its
+    config's remat, AdamW at the trainer's lr, gradients in bf16:
+    TRAIN_FAMILY_STEPS steps of :func:`family_train_batches` at TRAIN_BATCH
+    x TRAIN_SEQ. Every loss finite, the last TRAIN_LOSS_DROP below the
+    first, no hand-written kernel launched; ms a step, tokens/s, peak
+    memory."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as MD
+    from repro_torch.optim import make_optimizer
+    cfg = family_train_cfg(arch, reduced=False)
+    pub = configs.get(arch)
+    check(cfg.d_model == pub.d_model and cfg.d_ff == pub.d_ff
+          and cfg.vocab_size == pub.vocab_size,
+          f"train {arch}: not at its published widths")
+    free()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MD.init(cfg, device, seed=seed)
+    lr = LT.TrainConfig.lr
+    opt = make_optimizer("adamw", lr=lr)
+    state = opt.init(MD.shape_tree(model))
+    step = ST.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    losses, step_s = [], []
+    for i, b in enumerate(family_train_batches(
+            cfg, TRAIN_FAMILY_STEPS, TRAIN_BATCH, TRAIN_SEQ, seed, device)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, state, loss, _ = step(model, state, b, i)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t1)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, state, step
+    free()
+    check(all(n == 0 for n in launches.values()),
+          f"train {arch}: hand-written kernels launched during the steps: "
+          f"{launches}")
+    check(all(np.isfinite(losses)), f"train {arch}: non-finite loss {losses}")
+    check(losses[-1] <= losses[0] - TRAIN_LOSS_DROP,
+          f"train {arch}: the last loss {losses[-1]} is not "
+          f"{TRAIN_LOSS_DROP} below the first {losses[0]}")
+    steady = step_s[1:]
+    rows = TRAIN_SEQ + (cfg.vlm_num_patches if cfg.family == "vlm" else 0)
+    return dict(
+        card=card, model=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model,
+        dtype=cfg.dtype, remat=cfg.remat, optimizer="adamw", lr=lr,
+        grad_dtype="bfloat16", params=n_params, steps=TRAIN_FAMILY_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, rows_per_sequence=rows,
+        extra_inputs={"vlm": f"{cfg.vlm_num_patches} patches",
+                      "audio": f"{cfg.n_audio_ctx} frames"}.get(cfg.family),
+        loss_first=losses[0], loss_last=losses[-1], losses=losses,
+        ms_per_step_median=1e3 * statistics.median(steady),
+        ms_per_step_min=1e3 * min(steady), ms_first_step=1e3 * step_s[0],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(steady),
+        peak_allocated_gb=peak / 1e9, launches=launches, init_s=init_s,
+        seconds_total=time.perf_counter() - t0)
 
 
 def train_full_width(args, full_cfg, device, card):
@@ -5230,6 +5608,13 @@ def main(argv=None) -> int:
     emit("train", form="rehearse, reduced fp32, card vs CPU", card=card,
          **{name: train_card_vs_cpu(name, device) for name in (ARCH, DENSE)},
          resume=resume_drill(device))
+    emit("train", form="rehearse the other families, reduced fp32, card vs "
+                       "CPU", card=card,
+         **{arch: train_family_card_vs_cpu(arch, device, args.seed)
+            for arch in FAMILIES})
+    for arch in FAMILIES:
+        emit("train", form="full width, the other families",
+             **train_family_full_width(arch, device, card, args.seed))
     tcfg, trained, line = train_full_width(args, full_cfg, device, card)
     emit("train", form="full width", **line)
     t_train = time.perf_counter() - t0

@@ -17,6 +17,9 @@ serves every family (``mamba2-370m``, ``zamba2-2.7b``, ``whisper-base``,
 
     srv = FixedBatchServer(ServeConfig(arch="zamba2-2.7b"), device="cpu")
     tokens = srv.generate(prompts)              # [B, max_new_tokens]
+
+On the card the server replays its prefill and each decode step from CUDA
+graphs (``srv.graph_stats()``); on the CPU it runs the same bodies eagerly.
 """
 from __future__ import annotations
 
@@ -52,8 +55,22 @@ class FixedBatchServer:
     """The reference's fixed-batch loop (its ``Server``): a batch of prompts
     of one length shares one scalar cache position and finishes before the
     next batch starts. It serves every family through the non-slot API
-    (``model.prefill`` / ``decode_step``, eager: the reference jits them)
-    and is the baseline the engine's tokens are held to.
+    (``model.prefill`` / ``decode_step``) and is the baseline the engine's
+    tokens are held to.
+
+    The reference jits the prefill and the step. On a CUDA device the
+    server replays them from CUDA graphs (``launch/steps.py``): for the
+    last (batch, ``s_max``) it served, one cache, allocated once and
+    written in place, and one step graph (:class:`steps.GraphedStep` over
+    :func:`steps.make_serve_step`, a static token buffer); for each prompt
+    shape one prefill graph into that cache (:class:`steps.GraphedPrefill`,
+    static buffers for the tokens and the ``patches`` / ``frames``); all of
+    the server's graphs in one memory pool. Another (batch, ``s_max``)
+    frees them and captures its own. A capture or a replay that
+    fails raises. Sampling (argmax, or threefry at T > 0) runs on the
+    device between the replays, as the reference samples between its
+    jitted calls. Elsewhere (``_graph_maker`` None) the bodies run eagerly
+    into a new cache per call.
 
     ``device`` is the caller's (default ``"cuda"``), never chosen for it;
     ``model``: the port's model on that device (default: random weights of
@@ -80,6 +97,51 @@ class FixedBatchServer:
                              f"on {self.device}")
         self.model = model
         self._step = ST.make_serve_step(self.cfg)
+        self._new_graph = self._graph_maker()
+        self._graphed: dict = {}
+
+    def _graph_maker(self):
+        """Graph factory of the server's graphs: CUDA graphs sharing one
+        memory pool and one side stream on a CUDA device; None elsewhere
+        (the bodies run eagerly)."""
+        if self.device.type != "cuda":
+            return None
+        with torch.cuda.device(self.device):
+            pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(self.device)
+        return lambda: ST.CudaGraph(pool, stream)
+
+    def _graphed_for(self, batch_size: int, s_max: int) -> dict:
+        """The cache, graphed prefill and graphed step of (``batch_size``,
+        ``s_max``), built at first use. The server holds one such entry: a
+        new (batch, ``s_max``) drops the last one's cache and graphs before
+        it allocates its own."""
+        key = (batch_size, s_max)
+        if key not in self._graphed:
+            self._graphed.clear()
+            cache = MD.init_cache(self.cfg, batch_size, s_max, self.device)
+            consts = MD.slot_consts(self.cfg, cache)
+            token = torch.zeros((batch_size,), dtype=torch.int32,
+                                device=self.device)
+            self._graphed[key] = dict(
+                cache=cache,
+                prefill=ST.GraphedPrefill(
+                    ST.make_serve_prefill(self.cfg, consts=consts),
+                    self.model, cache, self._new_graph),
+                step=ST.GraphedStep(ST.make_serve_step(self.cfg, consts),
+                                    self.model, cache, (token,),
+                                    self._new_graph))
+        return self._graphed[key]
+
+    def graph_stats(self) -> dict:
+        """``{"<batch>x<s_max> <graph>": StepGraph.stats()}`` of every graph
+        captured so far (empty off the card)."""
+        out = {}
+        for (b, s_max), g in self._graphed.items():
+            for part in ("prefill", "step"):
+                for name, sg in g[part].graphs.items():
+                    out[f"{b}x{s_max} {name}"] = sg.stats()
+        return out
 
     def _batch(self, prompts, extra_batch) -> dict:
         batch = {"tokens": torch.as_tensor(prompts).to(self.device,
@@ -93,23 +155,34 @@ class FixedBatchServer:
                 device=self.device)
         return batch
 
-    def generate(self, prompts, extra_batch: Optional[dict] = None
-                 ) -> np.ndarray:
+    def generate(self, prompts, extra_batch: Optional[dict] = None,
+                 logits_out: Optional[list] = None) -> np.ndarray:
         """prompts: ``[B, P]`` integers -> ``[B, max_new_tokens]`` int32;
         the cache holds ``P`` rows (plus a vlm's patch rows) and
         ``max_new_tokens``. ``extra_batch``: ``patches`` (vlm) or ``frames``
         (audio; zeros in the model type when not given), numpy arrays or
-        tensors."""
+        tensors. ``logits_out``: a list that receives a copy of the
+        prefill's logits and of each step's, ``[B, V]`` fp32 on the
+        device."""
         sc, cfg = self.sc, self.cfg
         batch = self._batch(prompts, extra_batch)
         rows = batch["tokens"].shape[1]
         if cfg.family == "vlm" and "patches" in batch:
             rows += batch["patches"].shape[1]
-        prefill = ST.make_serve_prefill(cfg, s_max=rows + sc.max_new_tokens)
-        logits, cache = prefill(self.model, batch)
+        s_max = rows + sc.max_new_tokens
+        if self._new_graph is None:
+            prefill = ST.make_serve_prefill(cfg, s_max=s_max)
+            logits, cache = prefill(self.model, batch)
+            step = self._step
+        else:
+            graphed = self._graphed_for(batch["tokens"].shape[0], s_max)
+            logits, cache = graphed["prefill"](self.model, batch)
+            step = graphed["step"]
         key = TF.prng_key(sc.seed, self.device)
         outs = []
         for _ in range(sc.max_new_tokens):
+            if logits_out is not None:
+                logits_out.append(logits.clone())
             if sc.temperature > 0:
                 key, sub = TF.split(key)
                 tok = TF.categorical(sub, logits / torch.full_like(
@@ -117,7 +190,9 @@ class FixedBatchServer:
             else:
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
             outs.append(tok)
-            logits, cache = self._step(self.model, cache, tok)
+            logits, cache = step(self.model, cache, tok)
+        if logits_out is not None:
+            logits_out.append(logits.clone())
         return torch.stack(outs, dim=1).cpu().numpy()
 
 

@@ -1,7 +1,7 @@
 """Step functions: the train step (:func:`make_train_step`), the fixed-batch
 server's prefill and step (:func:`make_serve_prefill`,
-:func:`make_serve_step`, eager), and the steps of the continuous-batching
-engine with the CUDA graphs that replay them.
+:func:`make_serve_step`), and the steps of the continuous-batching engine,
+with the CUDA graphs that replay them.
 
 Each ``make_*`` closes over the ModelConfig and returns the callable the
 engine invokes: the step's BODY, which runs eagerly under
@@ -13,7 +13,9 @@ replays each decode block (:class:`GraphedStep` over
 step-at-a-time loop) and each admitted prompt (:class:`GraphedAdmit`, one
 graph per pad shape at batch 1), and a speculative engine each draft /
 verify round (:class:`GraphedRound` over :func:`make_slot_decode_spec`), so
-the device, not Python, drives serving.
+the device, not Python, drives serving. The fixed-batch server replays its
+prefill (:class:`GraphedPrefill`, one graph per batch shape) and its step
+(:class:`GraphedStep` over :func:`make_serve_step`) likewise.
 On the CPU, and in ``chip_smoke.py``'s comparisons on the card, the bodies
 run eagerly. The kernels inside a graph are the same hand-written ones.
 
@@ -164,21 +166,30 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, microbatches: int = 1,
 # fixed-batch serving (the non-slot API)
 # ---------------------------------------------------------------------------
 
-def make_serve_prefill(cfg: ModelConfig, s_max: Optional[int] = None
-                       ) -> Callable:
-    """serve_prefill(model, batch) -> (logits [B, V], cache): the model's
-    :func:`model.prefill` at capacity ``s_max``. Runs eagerly (the
-    reference jits it; no CUDA graph on this path)."""
-    def serve_prefill(model, batch):
-        return MD.prefill(cfg, model, batch, s_max=s_max)
+def make_serve_prefill(cfg: ModelConfig, s_max: Optional[int] = None,
+                       consts: Optional[MD.SlotConsts] = None) -> Callable:
+    """serve_prefill(model, batch, cache=None) -> (logits [B, V], cache):
+    the model's :func:`model.prefill` at capacity ``s_max``, into a new
+    cache or IN PLACE into ``cache`` (the body a :class:`GraphedPrefill`
+    captures). ``consts``: the cache's ``model.slot_consts`` (its RoPE
+    frequencies; default: built at every call)."""
+    inv_freq = None if consts is None else consts.inv_freq
+
+    def serve_prefill(model, batch, cache=None):
+        return MD.prefill(cfg, model, batch, s_max=s_max, cache=cache,
+                          inv_freq=inv_freq)
     return serve_prefill
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig,
+                    consts: Optional[MD.SlotConsts] = None) -> Callable:
     """serve_step(model, cache, token [B]) -> (logits [B, V], cache): one
-    :func:`model.decode_step`, the cache updated in place."""
+    :func:`model.decode_step`, the cache updated in place. ``consts``: the
+    cache's ``model.slot_consts`` (default: built at every call); given
+    them, the step reads nothing on the host, and a :class:`GraphedStep`
+    replays it."""
     def serve_step(model, cache, token):
-        return MD.decode_step(cfg, model, cache, token)
+        return MD.decode_step(cfg, model, cache, token, consts)
     return serve_step
 
 
@@ -451,10 +462,12 @@ def make_slot_admit_spec_paged(cfg: ModelConfig, draft_cfg: ModelConfig,
 
 def _clone_cache(cache):
     """A scratch copy of a cache, or of a tuple of caches (a speculative
-    round's two)."""
+    round's two); a cache entry that is a tuple of tensors (the ssm
+    families' ``SSMState``) is copied field by field."""
     if isinstance(cache, tuple):
         return tuple(_clone_cache(c) for c in cache)
-    return {name: t.clone() for name, t in cache.items()}
+    return {name: (type(t)(*(x.clone() for x in t)) if isinstance(t, tuple)
+                   else t.clone()) for name, t in cache.items()}
 
 
 class CudaGraph:
@@ -483,12 +496,20 @@ class CudaGraph:
         torch.cuda.synchronize()
 
     def capture(self, body: Callable, cache, inputs):
-        """Record ``body`` on the live cache; nothing runs."""
+        """Record ``body`` on the live cache; nothing runs. A host
+        synchronisation inside the body raises at the call that makes it
+        (``torch.cuda.set_sync_debug_mode("error")``), not as a broken
+        capture."""
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved()
+        mode = torch.cuda.get_sync_debug_mode()
         with torch.cuda.graph(self._graph, pool=self._pool,
                               stream=self._stream):
-            out = body(cache, *inputs)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = body(cache, *inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
         self.reserved_bytes = torch.cuda.memory_reserved() - before
         return out
 
@@ -671,3 +692,41 @@ class GraphedAdmit:
             return g.replay().clone()
         logits, greedy = _admit_rows_one_by_one(one, cache, slots)
         return logits, greedy, cache
+
+
+class GraphedPrefill:
+    """The fixed-batch server's prefill (:func:`make_serve_prefill`) for one
+    model and one cache (``model.init_cache``), replayed from one
+    :class:`StepGraph` per batch shape: ``graphs["prefill <n>"]`` for
+    prompts of n tokens, ``"prefill <n> <key> <type>"`` with the family's
+    ``patches`` / ``frames`` (whose shape the config fixes), captured at
+    the shape's first use with static input buffers for every batch key,
+    the cache written in place. Returns (logits, cache): the graph's logits
+    tensor, rewritten by the next replay of a graph of the server's pool
+    (read it before the step)."""
+
+    def __init__(self, prefill: Callable, model, cache, new_graph: Callable):
+        self._prefill, self._model, self._cache = prefill, model, cache
+        self._new_graph = new_graph
+        self.graphs: Dict[str, StepGraph] = {}
+
+    @torch.inference_mode()
+    def __call__(self, model, batch: Dict[str, torch.Tensor]):
+        if model is not self._model:
+            raise ValueError("a graphed prefill replays against the model it "
+                             "was built for")
+        names = sorted(batch)
+        key = " ".join([f"prefill {batch['tokens'].shape[1]}"] + [
+            f"{k} {str(batch[k].dtype).split('.')[-1]}" for k in names
+            if k != "tokens"])
+        g = self.graphs.get(key)
+        if g is None:
+            prefill, m = self._prefill, self._model
+            inputs = [batch[k].clone() for k in names]
+
+            def body(cache, *vals):
+                return prefill(m, dict(zip(names, vals)), cache)[0]
+            g = self.graphs[key] = StepGraph(body, self._cache, inputs,
+                                             self._new_graph())
+        _load(g.inputs, [batch[k] for k in names])
+        return g.replay(), self._cache

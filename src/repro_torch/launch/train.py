@@ -11,7 +11,11 @@ error-feedback gradient compression, gradient accumulation.
         --steps 100 --global-batch 8 --seq-len 128 --ckpt-dir /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
 
-It runs on ``cuda`` unless ``--device cpu`` is given, never falling back.
+Every family but audio trains on the pipeline's token batches, as the
+reference's trainer does (a vlm on its text alone, no patches); the audio
+family's forward needs frames the pipeline does not make, so :func:`build`
+refuses it (ROADMAP C13). It runs on ``cuda`` unless ``--device cpu`` is
+given, never falling back.
 ``--no-reduced --layers 4`` trains the published widths of ``--arch`` at a
 cut depth; ``--dtype float32`` overrides the parameters' type. Booleans take
 ``--x`` / ``--no-x``. The reference's mesh (``--mesh-shape``) belongs to
@@ -85,6 +89,13 @@ def build(tc: TrainConfig):
         cfg = cfg.replace(n_layers=tc.layers)
     if tc.dtype:
         cfg = cfg.replace(dtype=tc.dtype)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the audio family's forward needs 'frames' "
+            f"[B, n_audio_ctx, d_model] and the data pipeline makes token "
+            f"batches only (the reference's trainer fails on its first step "
+            f"there, ROADMAP C13); train it through "
+            f"launch.steps.make_train_step with frames in the batch")
     opt_name = tc.optimizer or default_optimizer_for(cfg.param_count())
     opt = make_optimizer(opt_name, lr=tc.lr)
     if tc.grad_compression:

@@ -103,8 +103,8 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     cs = torch.cumsum(x, dim=-1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    return torch.where(mask, out, torch.tensor(-math.inf, dtype=out.dtype,
-                                               device=x.device))
+    return torch.where(mask, out, torch.full((), -math.inf, dtype=out.dtype,
+                                             device=x.device))
 
 
 def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int,

@@ -39,13 +39,14 @@ serving forwards run under ``torch.inference_mode()``, and so do
 ``forward`` / ``loss`` unless ``train=True``: then they build the autograd
 graph through the reference's training arithmetic on both devices (no
 hand-written kernel, each block under ``cfg.remat``), for the train step
-(``launch/steps.py :: make_train_step``); the dense and moe families only.
-The parameters are frozen until :func:`trainable` turns ``requires_grad``
-on for the floating ones.
+(``launch/steps.py :: make_train_step``), every family. The parameters are
+frozen until :func:`trainable` turns ``requires_grad`` on for the floating
+ones.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -212,27 +213,34 @@ class SlotConsts(NamedTuple):
 
 
 def slot_consts(cfg: ModelConfig, cache: Dict[str, torch.Tensor]) -> SlotConsts:
-    """The :class:`SlotConsts` of ``cache`` (dense or paged), the same ops
-    as a step that builds them itself, so the bits are the same."""
+    """The :class:`SlotConsts` of ``cache`` (dense or paged, or the non-slot
+    cache of :func:`init_cache`), the same ops as a step that builds them
+    itself, so the bits are the same. A cache without K/V rows (the ssm
+    family's) has no capacity or block size: None."""
     inv_freq = _inv_freq(cfg, cache["pos"].device)
-    if "kp" in cache:
+    if "kp" in cache or "s_max" not in cache:
         return SlotConsts(inv_freq, None, None)
     return SlotConsts(inv_freq, int(cache["s_max"]), int(cache["kv_block"]))
 
 
 def _ssm_stack(cfg: ModelConfig, model: Model, x: torch.Tensor,
-               return_states: bool = False):
+               return_states: bool = False, train: bool = False):
     """The ssm family's layers over a full sequence. Returns y, and with
-    ``return_states`` the per-layer :class:`mamba.SSMState` list."""
+    ``return_states`` the per-layer :class:`mamba.SSMState` list. ``train``:
+    each layer (its norm, block and residual) under ``cfg.remat``, the
+    reference's ``_maybe_remat`` around its scan body."""
     states = []
     for ln, mp in zip(model.ssm_ln, model.ssm):
-        hn = L.rmsnorm(ln, x, cfg.norm_eps)
-        if return_states:
-            out, st = S.mamba_apply(cfg, mp, hn, return_state=True)
+        if train:
+            x = T._remat(cfg, functools.partial(T.mamba_layer, cfg, ln, mp),
+                         x)
+        elif return_states:
+            out, st = S.mamba_apply(cfg, mp, L.rmsnorm(ln, x, cfg.norm_eps),
+                                    return_state=True)
             states.append(st)
+            x = x + out
         else:
-            out = S.mamba_apply(cfg, mp, hn)
-        x = x + out
+            x = T.mamba_layer(cfg, ln, mp, x)
     return (x, states) if return_states else x
 
 
@@ -250,11 +258,7 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
     loss (summed over the layers), captures or None). Captures:
     ``(expert_inputs [L, B, S, d], usage_counts [L, N])`` of every MoE
     layer, ``stack`` then ``stack_c``. ``train``: outside inference mode,
-    the training arithmetic, differentiable (module docstring; dense and
-    moe only)."""
-    if train and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported")
+    the training arithmetic, differentiable (module docstring)."""
     with contextlib.nullcontext() if train else torch.inference_mode():
         dev = batch["tokens"].device
         inv_freq = _inv_freq(cfg, dev)
@@ -262,13 +266,15 @@ def forward(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
         caps = None
         x = L.embed_apply(model.embed, batch["tokens"])
         if cfg.family == "audio":
-            enc_out = T.encode(cfg, model.encdec, batch["frames"])
+            enc_out = T.encode(cfg, model.encdec, batch["frames"],
+                               train=train)
             x = T.decode_stack_apply(cfg, model.encdec, x, enc_out,
-                                     inv_freq=inv_freq)
+                                     inv_freq=inv_freq, train=train)
         elif cfg.family == "ssm":
-            x = _ssm_stack(cfg, model, x)
+            x = _ssm_stack(cfg, model, x, train=train)
         elif cfg.family == "hybrid":
-            x = T.hybrid_apply(cfg, model.hybrid, x, inv_freq=inv_freq)
+            x = T.hybrid_apply(cfg, model.hybrid, x, inv_freq=inv_freq,
+                               train=train)
         else:
             x = _with_patches(cfg, x, batch)
             caps_list = []
@@ -360,15 +366,24 @@ def init_cache(cfg: ModelConfig, batch_size: int, s_max: int,
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
-            s_max: Optional[int] = None):
+            s_max: Optional[int] = None, cache: Optional[Dict] = None,
+            inv_freq: Optional[torch.Tensor] = None):
     """Process the prompts (batch as :func:`forward`'s); returns
     (last-position logits ``[B, V]`` fp32, cache). ``s_max``: the cache's
     capacity in positions (prompt, patches included, plus the generation
     budget; default, or anything smaller: the prompt's length, no room to
-    decode), the reference's."""
+    decode), the reference's.
+
+    ``cache``: an :func:`init_cache` cache of this batch size and room for
+    the prompt, written IN PLACE (the K/V rows zeroed first, so it ends as a
+    new one would) and handed back, in place of a new one (``s_max`` then
+    unused): what a graph captured over the prefill replays into.
+    ``inv_freq``: the RoPE frequencies (``slot_consts``; default: built
+    here). With both, the prefill reads nothing on the host."""
     tokens = batch["tokens"]
     B, dev = tokens.shape[0], tokens.device
-    inv_freq = _inv_freq(cfg, dev)
+    if inv_freq is None:
+        inv_freq = _inv_freq(cfg, dev)
     x = L.embed_apply(model.embed, tokens)
     ks = vs = states = enc_out = None
     if cfg.family == "audio":
@@ -389,7 +404,15 @@ def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
             vs_l.append(v)
         ks, vs = torch.cat(ks_l, dim=0), torch.cat(vs_l, dim=0)
     n = x.shape[1]
-    cache = init_cache(cfg, B, max(n, s_max or 0), dev)
+    if cache is None:
+        cache = init_cache(cfg, B, max(n, s_max or 0), dev)
+    elif "k" in cache:
+        if cache["k"].shape[1] != B or cache["k"].shape[2] < n:
+            raise ValueError(f"a cache of {tuple(cache['k'].shape[1:3])} "
+                             f"(batch, rows) does not take {B} prompts of "
+                             f"{n} positions")
+        cache["k"].zero_()
+        cache["v"].zero_()
     if ks is not None:
         cache["k"][:, :, :n] = ks
         cache["v"][:, :, :n] = vs
@@ -405,20 +428,23 @@ def prefill(cfg: ModelConfig, model: Model, batch: Dict[str, torch.Tensor],
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, model: Model, cache: Dict[str, object],
-                token: torch.Tensor):
+                token: torch.Tensor, consts: Optional[SlotConsts] = None):
     """One decode step of the whole batch at the cache's one position; the
     cache is updated IN PLACE (``pos`` advanced in its tensor). token:
     ``[B]`` integer. The attention layers write their K/V row at ``pos`` and
     attend rows ``<= pos`` through ``layers.attn_decode`` (the paged kernel
     over the contiguous table, as the engine's dense decode), the Mamba2
-    layers advance their states. Returns (logits ``[B, V]`` fp32, cache)."""
-    inv_freq = _inv_freq(cfg, token.device)
+    layers advance their states. ``consts``: the cache's
+    :func:`slot_consts` (default: built here); given them, the step reads
+    nothing on the host. Returns (logits ``[B, V]`` fp32, cache)."""
+    c = slot_consts(cfg, cache) if consts is None else consts
+    inv_freq = c.inv_freq
     x = L.embed_apply(model.embed, token[:, None])
     pos = cache["pos"]
     view = None
     if "k" in cache:                           # one for every layer
         view = L.decode_view(pos.expand(x.shape[0]), cache["k"].shape[2],
-                             int(cache["s_max"]), int(cache["kv_block"]))
+                             c.s_max, c.kv_block)
     if cfg.family == "audio":
         x = T.decode_stack_step(cfg, model.encdec, x, cache["enc"],
                                 cache["k"], cache["v"], pos,

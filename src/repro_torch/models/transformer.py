@@ -5,10 +5,11 @@ shared attention / MLP block, zamba2) and encoder-decoder (whisper).
 
 The reference scans stacked ``[L, ...]`` parameters; here a stack is a Python
 sequence of :class:`Block` modules and the scan is a loop. Under training
-(``train=True``) each block is rematerialised as ``cfg.remat`` asks, the
-reference's ``_maybe_remat``: ``"full"`` keeps only the block's input
-(``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of its
-matrix products (selective checkpointing). The reference also puts a
+(``train=True``) each block (a decoder-only block, a hybrid's Mamba2 layer
+but not its shared block, an encoder or decoder block) is rematerialised
+as ``cfg.remat`` asks, the reference's ``_maybe_remat``: ``"full"`` keeps
+only the block's input (``torch.utils.checkpoint``), ``"dots"`` also keeps
+the outputs of its matrix products (selective checkpointing). The reference also puts a
 ``bf16_cotangent`` barrier after each block, an identity in both passes on a
 bf16 model (its cotangents are bf16 already) that fails on an fp32 one; the
 port has no barrier, so an fp32 model trains with fp32 cotangents.
@@ -292,23 +293,33 @@ def _segment_layers(cfg: ModelConfig, s_i: int) -> range:
     return range(s_i * every, (s_i + 1) * every)
 
 
-def _shared_mlp(cfg: ModelConfig, p: HybridStack, x: torch.Tensor):
+def _shared_mlp(cfg: ModelConfig, p: HybridStack, x: torch.Tensor,
+                train: bool = False):
     return x + L.mlp_apply(p.shared_mlp,
-                           L.rmsnorm(p.shared_ln2, x, cfg.norm_eps))
+                           L.rmsnorm(p.shared_ln2, x, cfg.norm_eps),
+                           train=train)
+
+
+def mamba_layer(cfg: ModelConfig, ln, mp, x: torch.Tensor) -> torch.Tensor:
+    """One Mamba2 layer over a full sequence: norm, block, residual."""
+    return x + S.mamba_apply(cfg, mp, L.rmsnorm(ln, x, cfg.norm_eps))
 
 
 def hybrid_apply(cfg: ModelConfig, p: HybridStack, x: torch.Tensor, *,
-                 inv_freq) -> torch.Tensor:
-    """Full-sequence forward of the hybrid stack."""
+                 inv_freq, train: bool = False) -> torch.Tensor:
+    """Full-sequence forward of the hybrid stack. ``train``: the training
+    arithmetic, each Mamba2 layer under ``cfg.remat``; the shared block is
+    not rematerialised (the reference wraps only its Mamba2 scan body)."""
     eps = cfg.norm_eps
     for s_i in range(n_segments(cfg)):
         for li in _segment_layers(cfg, s_i):
-            x = x + S.mamba_apply(cfg, p.mamba[li],
-                                  L.rmsnorm(p.mamba_ln[li], x, eps))
+            layer = functools.partial(mamba_layer, cfg, p.mamba_ln[li],
+                                      p.mamba[li])
+            x = _remat(cfg, layer, x) if train else layer(x)
         h = x + L.attn_apply(cfg, p.shared_attn,
                              L.rmsnorm(p.shared_ln1, x, eps),
-                             inv_freq=inv_freq)
-        x = _shared_mlp(cfg, p, h)
+                             inv_freq=inv_freq, train=train)
+        x = _shared_mlp(cfg, p, h, train=train)
     return x
 
 
@@ -418,42 +429,66 @@ def _sinusoid(S_len: int, d: int, device) -> torch.Tensor:
     cosines."""
     pos = torch.arange(S_len, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
-    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    base = torch.full((), 10000.0, dtype=torch.float32, device=device)
+    ang = pos / torch.pow(base, dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(cfg: ModelConfig, p: EncDec, frames: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg: ModelConfig, b: EncBlock, x: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+    eps = cfg.norm_eps
+    x = x + L.attn_apply(cfg, b.attn, L.rmsnorm(b.ln1, x, eps),
+                         inv_freq=None, causal=False, train=train)
+    return x + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, x, eps), train=train)
+
+
+def encode(cfg: ModelConfig, p: EncDec, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
     """frames ``[B, n_audio_ctx, d]`` (precomputed frame embeddings, the
-    conv front end's stand-in) -> the encoder's output, in frames' type."""
+    conv front end's stand-in) -> the encoder's output, in frames' type.
+    ``train``: the training arithmetic, each block under ``cfg.remat``."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device).to(frames.dtype)
-    eps = cfg.norm_eps
     for b in p.enc:
-        x = x + L.attn_apply(cfg, b.attn, L.rmsnorm(b.ln1, x, eps),
-                             inv_freq=None, causal=False)
-        x = x + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, x, eps))
-    return L.rmsnorm(p.enc_ln, x, eps)
+        if train:
+            x = _remat(cfg, functools.partial(_enc_block, cfg, b,
+                                              train=True), x)
+        else:
+            x = _enc_block(cfg, b, x)
+    return L.rmsnorm(p.enc_ln, x, cfg.norm_eps)
 
 
 def _cross_mlp(cfg: ModelConfig, b: DecBlock, h: torch.Tensor,
-               enc_out: torch.Tensor) -> torch.Tensor:
+               enc_out: torch.Tensor, train: bool = False) -> torch.Tensor:
     """The decoder block after its self-attention: the cross-attention
     (encoder K and V projected anew at every call, as the reference does)
     and the MLP, each with its residual."""
     eps = cfg.norm_eps
     h = h + L.attn_apply(cfg, b.cross_attn, L.rmsnorm(b.ln_x, h, eps),
-                         inv_freq=None, kv=enc_out)
-    return h + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, h, eps))
+                         inv_freq=None, kv=enc_out, train=train)
+    return h + L.mlp_apply(b.mlp, L.rmsnorm(b.ln2, h, eps), train=train)
+
+
+def _dec_block(cfg: ModelConfig, b: DecBlock, x: torch.Tensor,
+               enc_out: torch.Tensor, *, inv_freq,
+               train: bool = False) -> torch.Tensor:
+    h = x + L.attn_apply(cfg, b.self_attn, L.rmsnorm(b.ln1, x, cfg.norm_eps),
+                         inv_freq=inv_freq, causal=True, train=train)
+    return _cross_mlp(cfg, b, h, enc_out, train=train)
 
 
 def decode_stack_apply(cfg: ModelConfig, p: EncDec, x: torch.Tensor,
-                       enc_out: torch.Tensor, *, inv_freq) -> torch.Tensor:
-    """The decoder's full-sequence forward over the encoder's output."""
+                       enc_out: torch.Tensor, *, inv_freq,
+                       train: bool = False) -> torch.Tensor:
+    """The decoder's full-sequence forward over the encoder's output.
+    ``train``: the training arithmetic, each block under ``cfg.remat``."""
     for b in p.dec:
-        h = x + L.attn_apply(cfg, b.self_attn,
-                             L.rmsnorm(b.ln1, x, cfg.norm_eps),
-                             inv_freq=inv_freq, causal=True)
-        x = _cross_mlp(cfg, b, h, enc_out)
+        if train:
+            x = _remat(cfg, functools.partial(_dec_block, cfg, b,
+                                              inv_freq=inv_freq, train=True),
+                       x, enc_out)
+        else:
+            x = _dec_block(cfg, b, x, enc_out, inv_freq=inv_freq)
     return x
 
 

@@ -103,8 +103,11 @@ def ref_params(model):
     """A port model's weights as the reference's parameter tree of jax
     arrays (floating leaves in the model's own types), for a reference
     function to run on: cheaper than the reference's jitted init."""
-    return jax.tree.map(jnp.asarray,
-                        convert.tree_to_numpy(convert.reference_tree(model)))
+    def leaf(t):
+        a = jnp.asarray(convert.tree_to_numpy(t))
+        return a.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else a
+    return jax.tree.map(leaf, convert.reference_tree(model),
+                        is_leaf=lambda t: isinstance(t, torch.Tensor))
 
 
 def model_pair(kind: str, dtype: str = "float32", seed: int = 0):

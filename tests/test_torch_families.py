@@ -1,19 +1,37 @@
 """Every family of the port against the reference (CPU, fp32, the reduced
-config of each ``ARCH_IDS`` entry, the same weights in both):
-``forward`` logits (vlm with patches, audio with frames), ``prefill`` logits
-and cache (the KV rows below ``pos``, the SSM states, the encoder's
-output), two ``decode_step``s with their caches; the reference's own decode
-== forward contract (``tests/test_decode_parity.py``: its positions, atol
-0.08, rtol 0.05) on the port alone; ``init_cache`` against the reference's
-shapes; the converter's round trip, bitwise; every family's ``Model`` built
-from a seed; the engine still refusing the non-token families.
+config of each ``ARCH_IDS`` entry, the same weights in both), and the
+fixed-batch server of the port (``launch/serve.py :: FixedBatchServer``)
+against the reference's.
+
+The model API: ``forward`` logits (vlm with patches, audio with frames),
+``prefill`` logits and cache (the KV rows below ``pos``, the SSM states, the
+encoder's output), two ``decode_step``s with their caches; the reference's
+own decode == forward contract (``tests/test_decode_parity.py``: its
+tolerance, atol 0.08, rtol 0.05) on the port alone; ``init_cache`` against
+the reference's shapes; the converter's round trip, bitwise; every family's
+``Model`` built from a seed; the engine still refusing the non-token
+families.
+
+The server, token for token, on the same weights and prompts: every family
+the reference serves through it, greedy and at temperature 0.7; JAX's
+``split`` and ``categorical`` against the port's threefry copy, bitwise;
+the port's ``Engine`` greedy == the port's ``FixedBatchServer`` (the
+reference's own parity flow) on the dense and moe families;
+``launch/input_specs.py`` against the reference's ``ShapeDtypeStruct``s for
+every arch x shape cell. The models of the MoE family are of the merged
+shape at split 1 where the case says so (``stack`` and ``stack_c``, random
+weights). Every reference server is followed by
+``set_activation_mesh(None)``: its constructor installs the host mesh
+(ROADMAP R1).
 
 Tolerance against the reference: fp32 logits and caches 1e-4 (the two
 frameworks sum in their own order; the largest gap seen is about 5e-6).
-Each reference function is jitted once per config (``_torch_port.fast_jit``);
-the weights are the
-port's, drawn from a seed and handed to the reference as its tree (its own
-init would cost a compile per config).
+Each reference function is compiled once per config and shape
+(``_torch_port.fast_jit``), and the model API's prefill and decode step run
+at the server's shape (``PROMPT`` tokens, ``s_max`` of the prompt and
+``NEW`` tokens), so the two share them (:func:`ref_serve`); the weights are
+the port's, drawn from a seed and handed to the reference as its tree (its
+own init would cost a compile per config).
 """
 import dataclasses
 
@@ -24,8 +42,15 @@ import pytest
 import torch
 
 from repro import configs as ref_configs
+from repro.launch import input_specs as RIS
+from repro.launch import serve as RSV
+from repro.launch import steps as RST
 from repro.models import model as RMD
+from repro.models.numerics import set_activation_mesh
 from repro_torch import configs, convert
+from repro_torch.core import threefry as TF
+from repro_torch.launch import input_specs as IS
+from repro_torch.launch import serve as SV
 from repro_torch.models import mamba as S
 from repro_torch.models import model as MD
 from repro_torch.serving import Engine, EngineConfig
@@ -33,9 +58,31 @@ from repro_torch.serving import Engine, EngineConfig
 from _torch_port import no_activation_mesh, one_torch_thread  # noqa: F401
 from _torch_port import fast_jit, ref_params, ref_tree_numpy
 
-B, SEQ = 2, 16            # the reference decode-parity test's shape
+#: the model API's batch and full sequence (the reference decode-parity
+#: test's shape); the server's prompt and new tokens, the model API's
+#: prompt too
+B, SEQ = 2, 16
+PROMPT, NEW = 8, 6
+TEMPERATURE = 0.7
 TOL = dict(rtol=1e-4, atol=1e-4)
 
+_REF = {}
+
+
+def ref_serve(rcfg, s_max: int):
+    """The reference's jitted serve prefill at ``s_max`` and serve step of
+    ``rcfg``, built once for the module (``fast_jit`` compiles each call
+    signature once) and shared by the model API's cases and the server's."""
+    key = (rcfg, s_max)
+    if key not in _REF:
+        _REF[key] = (fast_jit(RST.make_serve_prefill(rcfg, s_max=s_max)),
+                     fast_jit(RST.make_serve_step(rcfg)))
+    return _REF[key]
+
+
+# ---------------------------------------------------------------------------
+# the model API of every family
+# ---------------------------------------------------------------------------
 
 def _cfg(mod, arch, dtype="float32"):
     cfg = mod.get(arch).reduced().replace(dtype=dtype)
@@ -64,30 +111,34 @@ def _batch(cfg, rng):
 
 
 def _prompt(batch):
-    return dict(batch, tokens=batch["tokens"][:, :SEQ - 2])
+    return dict(batch, tokens=batch["tokens"][:, :PROMPT])
 
 
 @pytest.fixture(scope="module", params=ref_configs.ARCH_IDS)
 def run(request):
     """One family's models, inputs and the reference's outputs: forward,
-    prefill (s_max leaves room for both decode steps, the patch rows
-    included) and the two decode steps with their caches."""
+    prefill of the first PROMPT tokens at the server's s_max (PROMPT + NEW,
+    the patch rows included) and the two decode steps after it with their
+    caches."""
     arch = request.param
     rcfg, pcfg = _cfg(ref_configs, arch), _cfg(configs, arch)
     params = ref_params(MD.init(pcfg, "cpu", seed=1))
     model = convert.from_reference_params(ref_tree_numpy(params), pcfg, "cpu")
     batch = _batch(rcfg, np.random.default_rng(2))
-    s_max = SEQ + 2 + (rcfg.vlm_num_patches if rcfg.family == "vlm" else 0)
+    s_max = PROMPT + NEW + (rcfg.vlm_num_patches if rcfg.family == "vlm"
+                            else 0)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     full, _, _ = fast_jit(lambda p, b: RMD.forward(rcfg, p, b))(params, jb)
-    plog, cache = fast_jit(lambda p, b: RMD.prefill(rcfg, p, b, s_max=s_max))(
-        params, _prompt(jb))
-    step = fast_jit(lambda p, c, t: RMD.decode_step(rcfg, p, c, t))
-    steps = [(plog, cache)]
-    for t in (SEQ - 2, SEQ - 1):
+    prefill, step = ref_serve(rcfg, s_max)
+    steps = [prefill(params, _prompt(jb))]
+    for t in DECODED:
         steps.append(step(params, steps[-1][1], jb["tokens"][:, t]))
     return dict(arch=arch, rcfg=rcfg, pcfg=pcfg, params=params, model=model,
                 batch=batch, s_max=s_max, full=full, steps=steps)
+
+
+#: the positions the two decode steps feed
+DECODED = (PROMPT, PROMPT + 1)
 
 
 def _tb(batch):
@@ -130,8 +181,7 @@ def test_prefill_and_decode_vs_reference(run):
     np.testing.assert_allclose(_np(logits), _np(want_logits), **TOL)
     _cache_close(pcfg, cache, want_cache)
     toks = run["batch"]["tokens"]
-    for t, (want_logits, want_cache) in zip((SEQ - 2, SEQ - 1),
-                                            run["steps"][1:]):
+    for t, (want_logits, want_cache) in zip(DECODED, run["steps"][1:]):
         logits, out = MD.decode_step(pcfg, model, cache,
                                      torch.from_numpy(toks[:, t]))
         assert out is cache                              # in place
@@ -146,9 +196,9 @@ def test_decode_matches_forward_on_the_port(run):
     full, _, _ = MD.forward(pcfg, model, batch)
     plog, cache = MD.prefill(pcfg, model, _tb(_prompt(run["batch"])),
                              s_max=run["s_max"])
-    np.testing.assert_allclose(_np(plog), _np(full[:, SEQ - 3]), atol=0.08,
-                               rtol=0.05)
-    for t in (SEQ - 2, SEQ - 1):
+    np.testing.assert_allclose(_np(plog), _np(full[:, PROMPT - 1]),
+                               atol=0.08, rtol=0.05)
+    for t in DECODED:
         dlog, cache = MD.decode_step(pcfg, model, cache,
                                      batch["tokens"][:, t])
         np.testing.assert_allclose(_np(dlog), _np(full[:, t]), atol=0.08,
@@ -222,3 +272,220 @@ def test_every_family_builds_and_the_engine_refuses_it(arch):
         Engine(EngineConfig(arch=arch), cfg=cfg, params=model, device="cpu")
     with pytest.raises(NotImplementedError, match="slot"):
         MD.init_slot_cache(cfg, 2, 16, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the fixed-batch server
+# ---------------------------------------------------------------------------
+
+#: case -> (arch, MoE dispatch or None, merged at split 1)
+CASES = {
+    "dense": ("granite-8b", None, False),
+    "moe-dense": ("qwen3-moe-30b-a3b", "dense", False),
+    "moe-gather": ("qwen3-moe-30b-a3b", "gather", False),
+    "merged": ("qwen3-moe-30b-a3b", "gather", True),
+    "vlm": ("phi-3-vision-4.2b", None, False),
+    "audio": ("whisper-base", None, False),
+    "ssm": ("mamba2-370m", None, False),
+    "hybrid": ("zamba2-2.7b", None, False),
+}
+
+
+def _case_cfg(mod, case):
+    arch, dispatch, merged = CASES[case]
+    cfg = mod.get(arch).reduced().replace(dtype="float32")
+    if dispatch is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    return cfg.compressed(4, split=1) if merged else cfg
+
+
+def _inputs(cfg):
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (B, cfg.vlm_num_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = rng.standard_normal(
+            (B, cfg.n_audio_ctx, cfg.d_model)).astype(np.float32)
+    return prompts, extra
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def served(request):
+    """One case's port model and server on the CPU and the reference's
+    server on the same weights, its two jitted steps built as it builds
+    them (:func:`ref_serve`, shared with the model API's cases), with the
+    prompts. The
+    reference's server is built with ``prompt_len`` counting a vlm's patch
+    rows: sized without them its cache is too short and its decode writes
+    over the last row (ROADMAP C12), while the port sizes the cache from the
+    batch."""
+    case = request.param
+    rcfg, pcfg = _case_cfg(ref_configs, case), _case_cfg(configs, case)
+    model = MD.init(pcfg, "cpu", seed=4)
+    prompts, extra = _inputs(pcfg)
+    rows = PROMPT + (pcfg.vlm_num_patches if pcfg.family == "vlm" else 0)
+    sc = dict(arch=pcfg.name, max_new_tokens=NEW, seed=3)
+    ref = RSV.FixedBatchServer(RSV.ServeConfig(batch_size=B, prompt_len=rows,
+                                               **sc),
+                               cfg=rcfg, params=ref_params(model))
+    set_activation_mesh(None)
+    ref._prefill, ref._step = ref_serve(rcfg, rows + NEW)
+    port = SV.FixedBatchServer(SV.ServeConfig(**sc),
+                               cfg=pcfg, model=model, device="cpu")
+    return dict(case=case, ref=ref, port=port, prompts=prompts, extra=extra,
+                pcfg=pcfg, model=model, sc=sc)
+
+
+def _generate(server, s, temperature):
+    server.sc = dataclasses.replace(server.sc, temperature=temperature)
+    extra = ({k: jnp.asarray(v) for k, v in s["extra"].items()}
+             if server is s["ref"] else s["extra"])
+    out = server.generate(s["prompts"], extra or None)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("temperature", [0.0, TEMPERATURE],
+                         ids=["greedy", "T0.7"])
+def test_fixed_batch_server_token_for_token(served, temperature):
+    want = _generate(served["ref"], served, temperature)
+    got = _generate(served["port"], served, temperature)
+    assert got.shape == (B, NEW) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    if served["pcfg"].family == "audio":
+        # without frames both servers encode zeros in the model type
+        np.testing.assert_array_equal(
+            served["port"].generate(served["prompts"]),
+            np.asarray(served["ref"].generate(served["prompts"])))
+
+
+def test_c12_reference_cache_misses_the_patch_rows():
+    """ROADMAP C12, asserted so that this test notes when the reference
+    changes: the reference server's prefill sizes its cache ``prompt_len +
+    max_new_tokens``, so with a vlm's patches in front the decode runs out
+    of rows ``vlm_num_patches`` steps early (JAX then clamps each write onto
+    the last row); the port's server sizes the cache from the batch."""
+    rcfg, pcfg = _case_cfg(ref_configs, "vlm"), _case_cfg(configs, "vlm")
+    model = MD.init(pcfg, "cpu", seed=4)
+    prompts, extra = _inputs(pcfg)
+    batch = {"tokens": jnp.asarray(prompts),
+             "patches": jnp.asarray(extra["patches"])}
+    _, cache = jax.eval_shape(lambda: RMD.prefill(
+        rcfg, ref_params(model), batch, s_max=PROMPT + NEW))
+    rows = PROMPT + pcfg.vlm_num_patches
+    assert cache["k"].shape[2] == max(rows, PROMPT + NEW) < rows + NEW
+    port = SV.FixedBatchServer(SV.ServeConfig(max_new_tokens=NEW),
+                               cfg=pcfg, model=model, device="cpu")
+    seen = []
+    port._step = (lambda step: lambda m, c, t: seen.append(
+        (int(c["s_max"]), int(c["pos"]))) or step(m, c, t))(port._step)
+    port.generate(prompts, extra)
+    assert seen[0] == (rows + NEW, rows) and seen[-1][1] == rows + NEW - 1
+
+
+@pytest.mark.parametrize("seed", [0, 3, 2 ** 31 + 5])
+@pytest.mark.parametrize("shape", [(1, 7), (3, 50), (4, 256)])
+def test_split_and_categorical_equal_jax(seed, shape):
+    """``key, sub = split(key)`` then ``categorical(sub, logits / T)``, the
+    reference server's sampling, bit for bit: the keys of three rounds and
+    the sampled ids."""
+    jkey, tkey = jax.random.PRNGKey(seed), TF.prng_key(seed)
+    lg = np.random.default_rng(seed % 97).standard_normal(shape).astype(
+        np.float32) * 3
+    lt = torch.from_numpy(lg)
+    for _ in range(3):
+        jkey, jsub = jax.random.split(jkey)
+        pair = TF.split(tkey)
+        assert pair.shape == (2, 2)
+        tkey, tsub = pair[0], pair[1]
+        assert np.array_equal(np.asarray(jsub).astype(np.int64),
+                              tsub.numpy())
+        want = np.asarray(jax.random.categorical(jsub, jnp.asarray(lg)
+                                                 / TEMPERATURE))
+        got = TF.categorical(tsub, lt / torch.full_like(lt, TEMPERATURE))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    four = TF.split(TF.prng_key(seed), 4)
+    np.testing.assert_array_equal(
+        four.numpy(),
+        np.asarray(jax.random.split(jax.random.PRNGKey(seed), 4)).astype(
+            np.int64))
+
+
+@pytest.mark.parametrize("arch,dispatch", [("granite-8b", None),
+                                           ("qwen3-moe-30b-a3b", "gather")])
+def test_engine_greedy_equals_the_fixed_batch_server(arch, dispatch):
+    """The reference's parity flow on the port alone: the same prompts
+    through the continuous-batching engine (all admitted at once) and the
+    fixed-batch server give the same greedy tokens."""
+    cfg = configs.get(arch).reduced().replace(dtype="float32")
+    if dispatch is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
+    model = MD.init(cfg, "cpu", seed=2)
+    prompts = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (4, PROMPT)).astype(np.int32)
+    srv = SV.FixedBatchServer(SV.ServeConfig(arch=arch, max_new_tokens=NEW),
+                              cfg=cfg, model=model, device="cpu")
+    want = srv.generate(prompts)
+    eng = Engine(EngineConfig(arch=arch, n_slots=4, s_max=PROMPT + NEW,
+                              prefill_buckets=(PROMPT,), dispatch=dispatch),
+                 cfg=cfg, params=model, device="cpu")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW)
+    done = sorted(eng.run(), key=lambda r: r.uid)
+    np.testing.assert_array_equal(np.stack([r.out_tokens for r in done]),
+                                  want)
+
+
+def _leaves(tree):
+    return {jax.tree_util.keystr(p): v
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _same_spec(got, want):
+    assert tuple(got.shape) == tuple(want.shape)
+    assert got.device.type == "meta"
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_input_specs_equal_the_reference(arch):
+    """Every (arch, shape) cell: the batch or the decode cache and token as
+    meta tensors of the reference's shapes and dtypes (the port's cache
+    carries its ``s_max`` / ``kv_block`` host scalars too); ``long_500k`` on
+    a full-attention arch refused as the reference refuses it."""
+    for shape in configs.SHAPES:
+        if not ref_configs.shape_applicable(ref_configs.get(arch), shape):
+            with pytest.raises(ValueError, match="skipped"):
+                IS.input_specs(arch, shape)
+            with pytest.raises(ValueError, match="skipped"):
+                RIS.input_specs(arch, shape)
+            continue
+        want, got = RIS.input_specs(arch, shape), IS.input_specs(arch, shape)
+        assert got["kind"] == want["kind"]
+        assert got["cfg"].to_json_dict() == want["cfg"].to_json_dict()
+        if want["kind"] == "decode":
+            _same_spec(got["token"], want["token"])
+            wl, gl = _leaves(want["cache"]), _leaves(got["cache"])
+            assert set(wl) <= set(gl)
+            assert set(gl) - set(wl) <= {"['s_max']", "['kv_block']"}
+            for key, w in wl.items():
+                _same_spec(gl[key], w)
+        else:
+            assert set(got["batch"]) == set(want["batch"])
+            for key, w in want["batch"].items():
+                _same_spec(got["batch"][key], w)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-2.7b",
+                                  "whisper-base"])
+def test_params_specs_equal_the_reference(arch):
+    """The reference's parameter tree at the published widths, as meta
+    tensors: the same leaves, shapes and dtypes, no memory."""
+    want = _leaves(RIS.params_specs(ref_configs.get(arch)))
+    got = _leaves(IS.params_specs(configs.get(arch)))
+    assert set(got) == set(want)
+    for key, w in want.items():
+        _same_spec(got[key], w)
